@@ -1,0 +1,22 @@
+from .convert import flax_to_state_dict, state_dict_to_flax
+from .fold_bn import fold_batchnorm
+from .registry import (
+    ARCHITECTURE_REGISTRY,
+    create_model_from_architecture,
+    eval_apply,
+    init_network,
+    train_apply,
+)
+from .resnet import ResNetActorCritic
+
+__all__ = [
+    "ARCHITECTURE_REGISTRY",
+    "ResNetActorCritic",
+    "create_model_from_architecture",
+    "init_network",
+    "eval_apply",
+    "train_apply",
+    "fold_batchnorm",
+    "flax_to_state_dict",
+    "state_dict_to_flax",
+]

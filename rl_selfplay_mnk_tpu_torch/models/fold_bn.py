@@ -1,0 +1,47 @@
+"""BatchNorm folding for eval-mode (frozen-statistics) forwards.
+
+Counterpart of the JAX package's ``models/fold_bn.py``. Eval-mode
+BatchNorm is an affine map with constants, so a Conv -> BN pair folds into
+the conv:
+
+    W' = W * gamma / sqrt(var + eps)        (per output channel)
+    b' = (b - mu) * gamma / sqrt(var + eps) + beta
+
+``fold_batchnorm`` returns a folded copy: the convs carry the fold, the BN
+layers become the identity (gamma=1, beta=0, mu=0, var=1-eps), the copy is
+marked ``folded`` and frozen, and each residual block gets its weights in
+the residual-block kernel's layout (im2col (9C, C) in the compute dtype,
+f32 biases). The source model is left as it is.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from ..ops.resblock import conv_kernel_to_im2col
+
+
+@torch.no_grad()
+def fold_batchnorm(model):
+    folded = copy.deepcopy(model)
+    for conv, bn in folded.conv_bn_pairs():
+        inv = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        conv.weight.mul_(inv[:, None, None, None])
+        conv.bias.copy_((conv.bias - bn.running_mean) * inv + bn.bias)
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+    dt = folded.dtype
+    for blk in folded.blocks:
+        blk.kernel_weights = (
+            conv_kernel_to_im2col(blk.conv1.weight).to(dt).contiguous(),
+            blk.conv1.bias.to(torch.float32).contiguous(),
+            conv_kernel_to_im2col(blk.conv2.weight).to(dt).contiguous(),
+            blk.conv2.bias.to(torch.float32).contiguous(),
+        )
+    folded.folded = True
+    folded.requires_grad_(False)
+    return folded

@@ -1,0 +1,61 @@
+"""Policies: an ``apply`` function plus its parameters.
+
+Counterpart of the JAX package's ``selfplay/policies.py``. A policy's act
+signature is ``apply(params, obs, generator, deterministic) -> actions``
+with ``obs = {"observation": (E, 2, M, N) f32, "action_mask": (E, A) bool}``
+and int64 actions. A network policy's params are a BatchNorm-folded model
+(``models.fold_bn.fold_batchnorm``); its forward is eval mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..ops.masked import mask_logits, masked_argmax, masked_sample, random_masked_actions
+
+
+@dataclasses.dataclass
+class Policy:
+    """``apply(params, obs, generator, deterministic) -> actions``; the
+    sampling noise comes from ``generator``."""
+
+    apply: Callable[..., torch.Tensor]
+    params: Any = None
+    generator: Optional[torch.Generator] = None
+
+    def act(self, obs: dict, deterministic: bool = False) -> torch.Tensor:
+        return self.apply(self.params, obs, self.generator, deterministic)
+
+
+def _random_act(params, obs, generator=None, deterministic=False):
+    del params
+    return random_masked_actions(obs["action_mask"], generator, deterministic)
+
+
+def RandomPolicy(generator: Optional[torch.Generator] = None) -> Policy:
+    """Uniform-over-legal policy."""
+    return Policy(apply=_random_act, params=None, generator=generator)
+
+
+@functools.lru_cache(maxsize=None)
+def make_network_policy(network_apply: Callable) -> Callable:
+    """Lift ``network_apply(model, observation, mask) -> (logits, value)``
+    into a policy act function: mask, then sample or take the argmax."""
+
+    def act(params, obs, generator=None, deterministic=False):
+        logits, _ = network_apply(params, obs["observation"], obs["action_mask"])
+        logits = mask_logits(logits, obs["action_mask"])
+        if deterministic:
+            return masked_argmax(logits)
+        return masked_sample(logits, generator)
+
+    return act
+
+
+def NNPolicy(network_apply: Callable, model, generator: Optional[torch.Generator] = None) -> Policy:
+    """Policy over a network (pass a folded model: eval forwards fold first)."""
+    return Policy(apply=make_network_policy(network_apply), params=model, generator=generator)

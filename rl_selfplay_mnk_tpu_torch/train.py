@@ -1,0 +1,313 @@
+"""Self-play PPO training loop (counterpart of the JAX package's
+``train.py``, single-device and non-league path).
+
+  * opponent schedule: 15% a historical snapshot from the pool, 85% the
+    current network, drawn from a host ``random.Random(seed)``; every
+    opponent is a BatchNorm-folded copy, folded once when it is drawn;
+  * a pool insert every 20 iterations, FIFO eviction;
+  * validation against the benchmark every ``validation_interval``
+    iterations; the benchmark (first the untrained network) is replaced,
+    folded anew, when the score rate exceeds 0.60;
+  * per-iteration fault handling: log the error and continue, except for
+    a kernel that fails to build, load or launch (``KernelError``), which
+    ends the run.
+
+Runs on the card unless ``device="cpu"`` (``--device cpu``) is asked for.
+Usage::
+
+    python -m rl_selfplay_mnk_tpu_torch.train --total-steps 589824 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import random as _random
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+
+from .alg.ppo import PPOConfig, PPOLearner, PPOOptimizer, TrainingMetrics, pick_group_size
+from .alg.schedules import entropy_coef_at, make_lr_schedule
+from .env.mnk_env import EnvConfig
+from .models.fold_bn import fold_batchnorm
+from .ops.cuda_build import KernelError
+from .models.registry import create_model_from_architecture, eval_apply, init_network
+from .selfplay.opponent_pool import OpponentPool
+from .selfplay.policies import NNPolicy
+from .selfplay.validation import validate
+from .utils.hardware import HardwareConfig, detect_hardware_config
+from .utils.metrics import MetricsLogger
+
+
+def get_default_config() -> Dict[str, Any]:
+    """The JAX package's defaults for the keys this path reads."""
+    return {
+        "mnk": (9, 9, 5),
+        # lr
+        "learning_rate": 5e-4,
+        "lr_warmup_steps": 5_000_000,
+        "lr_decay": False,
+        # entropy
+        "entropy_coef": 0.04,
+        "entropy_coef_schedule": {
+            "type": "linear",
+            "params": {"final_coef": 0.001, "total_steps": 125_000_000},
+        },
+        # ppo
+        "gamma": 0.99,
+        "clip_range": 0.2,
+        "batch_size": 8192,
+        "n_steps": 256,
+        "ppo_epochs": 4,
+        "total_environment_steps": 300_000_000,
+        "num_envs": 384,
+        # validation
+        "benchmark_update_threshold_score": 0.60,
+        "validation_interval": 5,
+        "validation_episodes": 256,
+        # selfplay
+        "opponent_pool": 20,
+        "architecture_name": "resnet_b_s",
+        "seed": 0,
+        "pool_weighted": False,
+        "pool_eviction": "fifo",
+        "device": None,  # None = cuda
+    }
+
+
+def create_learner(config: Dict[str, Any], hw: HardwareConfig):
+    """Network + optimizer + PPO learner on ``hw.device``."""
+    m, n, k = config["mnk"]
+    env_cfg = EnvConfig(m, n, k).validate()
+    obs_shape = (2, m, n)
+    module, _ = create_model_from_architecture(
+        config["architecture_name"], obs_shape, m * n, dtype=hw.compute_dtype
+    )
+    # Initialise on the CPU from the seed, so both devices start alike.
+    init_network(module, torch.Generator().manual_seed(config["seed"]))
+    module.to(hw.device)
+
+    shuffle = config.get("shuffle", "auto")
+    if shuffle == "auto":
+        shuffle = "grouped" if hw.is_accelerator else "global"
+    ppo_cfg = PPOConfig(
+        env=env_cfg,
+        num_envs=config["num_envs"],
+        n_steps=config["n_steps"],
+        gamma=config["gamma"],
+        gae_lambda=0.95,
+        clip_range=config["clip_range"],
+        ppo_epochs=config["ppo_epochs"],
+        batch_size=config["batch_size"],
+        shuffle=shuffle,
+        group_size=pick_group_size(config["batch_size"]),
+    )
+    lr_schedule = make_lr_schedule(
+        base_lr=config["learning_rate"],
+        warmup_env_steps=config["lr_warmup_steps"],
+        total_env_steps=config["total_environment_steps"],
+        num_envs=config["num_envs"],
+        n_steps=config["n_steps"],
+        updates_per_iteration=ppo_cfg.updates_per_iteration,
+        decay=config["lr_decay"],
+    )
+    optimizer = PPOOptimizer(module.parameters(), lr_schedule)
+    generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 1)
+    learner = PPOLearner(module, ppo_cfg, optimizer, generator, hw.device)
+    return learner, env_cfg, lr_schedule
+
+
+def train_mnk(
+    config: Dict[str, Any],
+    logger: Optional[MetricsLogger] = None,
+    device: Optional[str] = None,
+) -> Dict[str, Any]:
+    """The training loop. Returns a summary: per-iteration metrics, the
+    validation results, the errors that the loop logged and skipped, and
+    the trained ``model``."""
+    hw = detect_hardware_config(device or config.get("device"))
+    own_logger = logger is None
+    if own_logger:
+        logger = MetricsLogger(run_name=config.get("run_name"), config=config)
+    learner, env_cfg, lr_schedule = create_learner(config, hw)
+    policy_generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 2)
+
+    def network_policy(folded, generator=policy_generator):
+        return NNPolicy(eval_apply, folded, generator)
+
+    # The benchmark starts as the untrained network; the pool is seeded with
+    # the same snapshot. Opponents only run eval forwards, so all are folded.
+    benchmark = fold_batchnorm(learner.model)
+    pool = OpponentPool(
+        max_size=config["opponent_pool"],
+        seed=config["seed"],
+        weighted=config.get("pool_weighted", False),
+        eviction=config.get("pool_eviction", "fifo"),
+    )
+    pool.add_opponent(benchmark)
+    last_score_rate = 1.0
+
+    steps_per_iteration = config["num_envs"] * config["n_steps"]
+    total_iterations = config["total_environment_steps"] // steps_per_iteration
+    host_rng = _random.Random(config["seed"])
+    learner.reset_envs(network_policy(benchmark))
+    summary: Dict[str, Any] = {"iterations": [], "validations": [], "errors": [],
+                               "jsonl_path": logger.jsonl_path}
+
+    print(f"Starting training for {total_iterations} iterations")
+    current_env_steps = 0
+    for i in range(total_iterations):
+        try:
+            if host_rng.random() < 0.15:
+                opponent, source = pool.get_random_opponent(), "historical"
+            else:
+                opponent, source = fold_batchnorm(learner.model), "current_agent"
+            logger.log({"training/opponent_source": source}, step=(i + 1) * steps_per_iteration)
+
+            ent_coef = entropy_coef_at(
+                config["entropy_coef"], config["entropy_coef_schedule"], i,
+                config["num_envs"], config["n_steps"],
+            )
+            metrics = learner.learn(network_policy(opponent), ent_coef)
+            current_env_steps = (i + 1) * steps_per_iteration
+            current_lr = lr_schedule((i + 1) * learner.config.updates_per_iteration - 1)
+            log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr)
+            summary["iterations"].append(dataclasses.asdict(metrics))
+
+            if i % 20 == 0:
+                pool.add_opponent(fold_batchnorm(learner.model), weight=last_score_rate)
+
+            if i > 0 and i % config["validation_interval"] == 0:
+                print(f"--- Running validation at step {i} ({current_env_steps:,} env steps) ---")
+                generator = torch.Generator(device=hw.device).manual_seed(
+                    config["seed"] * 1_000_003 + i
+                )
+                validation_res = validate(
+                    env_cfg,
+                    network_policy(fold_batchnorm(learner.model), generator),
+                    network_policy(benchmark, generator),
+                    config["validation_episodes"],
+                    hw.device,
+                    generator,
+                )
+                logger.log(validation_res, step=current_env_steps)
+                summary["validations"].append(validation_res)
+
+                score_rate = validation_res["validation/vs_benchmark/score_rate"]
+                last_score_rate = max(score_rate, 1e-3)
+                print(
+                    f"Score: {score_rate:.2f} | "
+                    f"W: {validation_res['validation/vs_benchmark/win_rate']:.2f} | "
+                    f"D: {validation_res['validation/vs_benchmark/draw_rate']:.2f} | "
+                    f"L: {validation_res['validation/vs_benchmark/loss_rate']:.2f}"
+                )
+                if score_rate > config["benchmark_update_threshold_score"]:
+                    print(f"--- New benchmark agent at step {i}! ---")
+                    benchmark = fold_batchnorm(learner.model)
+                    logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
+        except KernelError:
+            raise
+        except Exception as e:  # log and continue, as the JAX trainer does
+            handle_training_error(logger, e, i, current_env_steps)
+            summary["errors"].append(f"iteration {i}: {e!r}")
+            continue
+    if own_logger:
+        logger.finish()
+    summary["model"] = learner.model
+    return summary
+
+
+def log_training_metrics(
+    logger: MetricsLogger,
+    metrics: TrainingMetrics,
+    iteration: int,
+    env_steps: int,
+    entropy_coef: float,
+    current_lr: float,
+) -> None:
+    """Stdout line + logger record, with the JAX package's keys."""
+    print(
+        f"Iter {iteration} | {env_steps:,} steps | "
+        f"reward: {metrics.mean_reward:.3f} | "
+        f"length: {metrics.mean_length:.1f} | "
+        f"entropy: {metrics.entropy_loss:.4f} | "
+        f"entropy_coef: {entropy_coef:.4f} | "
+        f"lr: {current_lr:.6f} | "
+        f"grad_norm: {metrics.grad_norm:.3f} | "
+        f"clip: {metrics.clip_fraction:.3f} | "
+        f"explained_var: {metrics.explained_variance:.3f} | "
+        f"approx_kl: {metrics.approx_kl:.4f} | "
+        f"fps: {metrics.fps:.1f} | "
+        f"rollout_time: {metrics.rollout_time:.3f}s | "
+        f"learn_time: {metrics.learn_time:.3f}s"
+    )
+    logger.log(
+        {
+            "training/mean_reward": metrics.mean_reward,
+            "training/mean_length": metrics.mean_length,
+            "training/actor_loss": metrics.actor_loss,
+            "training/critic_loss": metrics.critic_loss,
+            "training/entropy_loss": metrics.entropy_loss,
+            "training/entropy_coef": entropy_coef,
+            "training/learning_rate": current_lr,
+            "training/grad_norm": metrics.grad_norm,
+            "training/clip_fraction": metrics.clip_fraction,
+            "training/explained_variance": metrics.explained_variance,
+            "training/approx_kl": metrics.approx_kl,
+            "training/fps": metrics.fps,
+        },
+        step=env_steps,
+    )
+
+
+def handle_training_error(logger: MetricsLogger, error: Exception, iteration: int,
+                          env_steps: int) -> None:
+    print(f"Error in iteration {iteration}: {error}")
+    traceback.print_exc()
+    logger.log(
+        {
+            "error/iteration": iteration,
+            "error/message": str(error),
+            "error/traceback": traceback.format_exc(),
+        },
+        step=env_steps,
+    )
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Train self-play PPO on MNK (PyTorch port)")
+    parser.add_argument("--arch", default=None, help="architecture registry name")
+    parser.add_argument("--m", type=int, default=None)
+    parser.add_argument("--n", type=int, default=None)
+    parser.add_argument("--k", type=int, default=None)
+    parser.add_argument("--num-envs", type=int, default=None)
+    parser.add_argument("--total-steps", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--run-name", default=None)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = parser.parse_args(argv)
+
+    config = get_default_config()
+    if args.arch:
+        config["architecture_name"] = args.arch
+    board = (args.m, args.n, args.k)
+    if any(v is not None for v in board):
+        if any(v is None for v in board):
+            parser.error("--m/--n/--k must be given together")
+        config["mnk"] = board
+    if args.num_envs:
+        config["num_envs"] = args.num_envs
+    if args.total_steps:
+        config["total_environment_steps"] = args.total_steps
+    if args.seed is not None:
+        config["seed"] = args.seed
+    config["run_name"] = args.run_name
+    config["device"] = args.device
+    with MetricsLogger(run_name=args.run_name, config=config) as logger:
+        train_mnk(config, logger)
+
+
+if __name__ == "__main__":
+    main()

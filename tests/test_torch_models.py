@@ -1,0 +1,221 @@
+"""The port's ResNet against the JAX package's, through the converter:
+parameter counts, train-mode forward with the running-statistic update,
+eval forward, gradients, BatchNorm folding, and the plain residual-block
+kernel against the Pallas kernel in interpret mode. Float32 on the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from rl_selfplay_mnk_tpu.models import create_model_from_architecture as jax_create
+from rl_selfplay_mnk_tpu.models import init_network as jax_init
+from rl_selfplay_mnk_tpu.models import make_apply_fns as jax_apply_fns
+from rl_selfplay_mnk_tpu.models.fold_bn import fold_batchnorm as jax_fold
+from rl_selfplay_mnk_tpu.ops.pallas_resnet import conv_kernel_to_im2col as jax_im2col
+from rl_selfplay_mnk_tpu.ops.pallas_resnet import fused_residual_block as jax_resblock
+from rl_selfplay_mnk_tpu_torch.models import (
+    create_model_from_architecture,
+    eval_apply,
+    flax_to_state_dict,
+    fold_batchnorm,
+    init_network,
+    state_dict_to_flax,
+)
+from rl_selfplay_mnk_tpu_torch.models.common import conv3x3
+from rl_selfplay_mnk_tpu_torch.ops.resblock import (
+    conv_kernel_to_im2col,
+    fused_residual_block,
+    fused_residual_block_reference,
+)
+
+# Forward/gradient tolerance: f32 convolutions and reductions in another
+# order than XLA's, through 9 conv + BN layers and two LayerNorm heads.
+ATOL = RTOL = 1e-4
+
+EXPECTED_PARAMS_9x9 = {
+    "resnet_s": 383_291,
+    "resnet_l": 2_453_819,
+    "resnet_b_s": 118_203,
+    "resnet_b_l": 665_627,
+    "resnet_b_s_w": 118_587,
+    "resnet_b_l_w": 679_739,
+}
+
+
+def count(model):
+    return sum(p.numel() for p in model.parameters())
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED_PARAMS_9x9))
+def test_parameter_counts_match_reference(name):
+    model, _ = create_model_from_architecture(name, (2, 9, 9), 81)
+    assert count(model) == EXPECTED_PARAMS_9x9[name]
+
+
+def test_parameter_count_13x13():
+    model, _ = create_model_from_architecture("resnet_b_s", (2, 13, 13), 169)
+    assert count(model) == 163_875
+
+
+@pytest.mark.parametrize("name", ["cnn_b_s", "transformer_b_s_w", "mlp_tiny", "nope"])
+def test_unported_or_unknown_names_raise(name):
+    with pytest.raises(ValueError):
+        create_model_from_architecture(name, (2, 9, 9), 81)
+
+
+def test_init_network_is_orthogonal_with_head_gains():
+    model, _ = create_model_from_architecture("resnet_b_s", (2, 5, 5), 25)
+    init_network(model, torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    w = model.blocks[0].conv1.weight.reshape(32, -1)
+    np.testing.assert_allclose((w @ w.T).numpy(), 2.0 * np.eye(32), atol=1e-5)
+    w = model.heads.policy_head.dense2.weight
+    np.testing.assert_allclose((w @ w.T).numpy(), 1e-4 * np.eye(25), atol=1e-8)
+    assert float(model.blocks[0].conv1.bias.abs().max()) == 0.0
+
+
+def jax_variables(seed=0, m=5, n=5):
+    """Initialised flax resnet_b_s variables with every leaf perturbed, so
+    biases, norms and running statistics are all non-trivial."""
+    module, _ = jax_create("resnet_b_s", (2, m, n), m * n)
+    variables = jax_init(module, (2, m, n), jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, x):
+        x = np.asarray(x, np.float32)
+        if path[-1].key == "var":
+            return (x * rng.uniform(0.5, 2.0, x.shape)).astype(np.float32)
+        return (x + 0.05 * rng.normal(size=x.shape)).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(perturb, variables)
+    return module, variables
+
+
+def port_model(variables, m=5, n=5):
+    model, _ = create_model_from_architecture("resnet_b_s", (2, m, n), m * n)
+    model.load_state_dict(flax_to_state_dict(variables))
+    return model
+
+
+def boards(seed, b=16, m=5, n=5):
+    rng = np.random.default_rng(seed)
+    owner = rng.integers(0, 3, size=(b, m, n))
+    return np.stack([owner == 1, owner == 2], axis=1).astype(np.float32)
+
+
+def assert_tree_close(a, b, atol=ATOL, rtol=RTOL):
+    flat_a = jax.tree_util.tree_flatten_with_path(a)[0]
+    flat_b = dict(jax.tree_util.tree_flatten_with_path(b)[0])
+    assert len(flat_a) == len(flat_b)
+    for path, x in flat_a:
+        np.testing.assert_allclose(np.asarray(x), np.asarray(flat_b[path]), atol=atol, rtol=rtol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_converter_round_trip():
+    _, variables = jax_variables(1)
+    assert_tree_close(state_dict_to_flax(flax_to_state_dict(variables)), variables, 0, 0)
+
+
+def test_train_forward_and_batch_stats_match_flax():
+    module, variables = jax_variables(2)
+    model = port_model(variables)
+    obs = boards(3)
+    _, train_apply = jax_apply_fns(module)
+    (lj, vj), bs_j = train_apply(variables, jnp.asarray(obs))
+    lt, vt = model(torch.from_numpy(obs), train=True)
+    np.testing.assert_allclose(np.asarray(lj), lt.detach().numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(np.asarray(vj), vt.detach().numpy(), atol=ATOL, rtol=RTOL)
+    # flax updates the running variance with the BIASED batch variance.
+    assert_tree_close(state_dict_to_flax(model.state_dict())["batch_stats"], bs_j, 1e-5, 1e-5)
+
+
+def test_eval_forward_matches_flax_and_folding_changes_nothing():
+    module, variables = jax_variables(4)
+    model = port_model(variables)
+    obs = boards(5)
+    eval_j, _ = jax_apply_fns(module)
+    lj, vj = eval_j(variables, jnp.asarray(obs))
+    lfj, vfj = eval_j(jax_fold(variables), jnp.asarray(obs))
+    folded = fold_batchnorm(model)
+    lt, vt = eval_apply(folded, torch.from_numpy(obs))
+    lu, vu = eval_apply(model, torch.from_numpy(obs))  # folds on the way
+    with torch.no_grad():  # unfolded plain-conv eval path
+        x = torch.relu(model.bn_in(conv3x3(torch.from_numpy(obs), model.conv_in, torch.float32), False))
+        for blk in model.blocks:
+            x = blk(x, False, torch.float32)
+        lc, vc = model.heads(x.permute(0, 2, 3, 1), torch.float32)
+    for l, v in ((lj, vj), (lfj, vfj), (lu, vu), (lc, vc)):
+        np.testing.assert_allclose(np.asarray(l), lt.numpy(), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(np.asarray(v), vt.numpy(), atol=ATOL, rtol=RTOL)
+    assert not model.folded and folded.folded
+    assert_tree_close(state_dict_to_flax(model.state_dict()), variables, 0, 0)
+
+
+def test_gradients_match_flax():
+    module, variables = jax_variables(6)
+    model = port_model(variables)
+    obs = boards(7)
+    rng = np.random.default_rng(8)
+    r1 = rng.normal(size=(16, 25)).astype(np.float32)
+    r2 = rng.normal(size=(16, 1)).astype(np.float32)
+    _, train_apply = jax_apply_fns(module)
+
+    def loss_j(params):
+        (l, v), _ = train_apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                jnp.asarray(obs))
+        return jnp.sum(l * r1) + jnp.sum(v * r2)
+
+    grads_j = jax.grad(loss_j)(variables["params"])
+    lt, vt = model(torch.from_numpy(obs), train=True)
+    ((lt * torch.from_numpy(r1)).sum() + (vt * torch.from_numpy(r2)).sum()).backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    grads.update({k: torch.zeros_like(b) for k, b in model.named_buffers()})
+    assert_tree_close(state_dict_to_flax(grads)["params"], grads_j, atol=2e-4, rtol=1e-3)
+
+
+def test_plain_resblock_matches_pallas_interpret():
+    """At tests/test_pallas.py's sizes (8 boards, 5x5, C=16); tolerance as there."""
+    rng = np.random.default_rng(0)
+    b, m, n, c = 8, 5, 5, 16
+    x = rng.normal(size=(b, m, n, c)).astype(np.float32)
+    k1 = (rng.normal(size=(3, 3, c, c)) * 0.1).astype(np.float32)
+    b1 = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    k2 = (rng.normal(size=(3, 3, c, c)) * 0.1).astype(np.float32)
+    b2 = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    want = jax_resblock(
+        jnp.asarray(x.reshape(b, m * n, c)), jax_im2col(jnp.asarray(k1)), jnp.asarray(b1),
+        jax_im2col(jnp.asarray(k2)), jnp.asarray(b2), m, n, tile_boards=4, interpret=True,
+    )
+    w1 = conv_kernel_to_im2col(torch.from_numpy(k1.transpose(3, 2, 0, 1).copy()))
+    w2 = conv_kernel_to_im2col(torch.from_numpy(k2.transpose(3, 2, 0, 1).copy()))
+    np.testing.assert_array_equal(w1.numpy(), np.asarray(jax_im2col(jnp.asarray(k1))))
+    args = (torch.from_numpy(x.reshape(b, m * n, c)), w1, torch.from_numpy(b1), w2,
+            torch.from_numpy(b2), m, n)
+    got = fused_residual_block_reference(*args)
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), rtol=2e-5, atol=2e-5)
+    # On a CPU tensor the wrapper is the plain version.
+    np.testing.assert_array_equal(fused_residual_block(*args).numpy(), got.numpy())
+
+    dn = ("NHWC", "HWIO", "NHWC")
+    h = jnp.maximum(lax.conv_general_dilated(x, k1, (1, 1), "SAME", dimension_numbers=dn) + b1, 0)
+    y = lax.conv_general_dilated(h, k2, (1, 1), "SAME", dimension_numbers=dn) + b2
+    np.testing.assert_allclose(np.asarray(jnp.maximum(y + x, 0)).reshape(b, m * n, c),
+                               got.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_resblock_matches_unfolded_conv_block():
+    _, variables = jax_variables(9)
+    model = port_model(variables)
+    folded = fold_batchnorm(model)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(6, 32, 5, 5)), 0).astype(np.float32))
+    x_cl = x.permute(0, 2, 3, 1).reshape(6, 25, 32).contiguous()
+    with torch.no_grad():
+        for blk, fblk in zip(model.blocks, folded.blocks):
+            want = blk(x, False, torch.float32).permute(0, 2, 3, 1).reshape(6, 25, 32)
+            got = fused_residual_block_reference(x_cl, *fblk.kernel_weights, 5, 5)
+            np.testing.assert_allclose(want.numpy(), got.numpy(), atol=ATOL, rtol=RTOL)

@@ -1,0 +1,141 @@
+"""Rules of the port: it never imports JAX or the JAX package, and its entry
+points run on the card unless the CPU is asked for, raising without CUDA."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from rl_selfplay_mnk_tpu_torch.train import get_default_config, train_mnk
+from rl_selfplay_mnk_tpu_torch.utils.hardware import resolve_device
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "msgpack", "rl_selfplay_mnk_tpu")
+PORT_FILES = sorted((REPO / "rl_selfplay_mnk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax(path):
+    bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+BLOCKED_IMPORT = """
+import importlib, importlib.abc, importlib.util, pkgutil, sys
+FORBIDDEN = {forbidden!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import rl_selfplay_mnk_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMPORT.format(forbidden=FORBIDDEN)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    config = get_default_config()
+    config.update(mnk=(3, 3, 3), num_envs=8, n_steps=16, batch_size=32,
+                  total_environment_steps=8 * 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mnk(config)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_take_no_plain_route_off_the_cpu():
+    """Only a CPU tensor gets the plain version; any other device either
+    launches the kernel or raises."""
+    from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
+    from rl_selfplay_mnk_tpu_torch.ops.env_step import fused_step
+    from rl_selfplay_mnk_tpu_torch.ops.resblock import fused_residual_block
+
+    x = torch.empty((2, 25, 16), device="meta")
+    w = torch.empty((144, 16), device="meta")
+    b = torch.empty((16,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_residual_block(x, w, b, w, b, 5, 5)
+    state = make_env_state(EnvConfig(3, 3, 3), 2, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_step(EnvConfig(3, 3, 3), state, torch.empty((2,), dtype=torch.int64, device="meta"))
+
+
+@pytest.mark.parametrize("entry", ["make_env_state", "selfplay_reset", "validate"])
+def test_env_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a ``device`` the env, the self-play reset and validation run
+    on the card, and raise without CUDA instead of using the CPU."""
+    from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
+    from rl_selfplay_mnk_tpu_torch.selfplay import RandomPolicy
+    from rl_selfplay_mnk_tpu_torch.selfplay.validation import validate
+    from rl_selfplay_mnk_tpu_torch.selfplay.wrapper import selfplay_reset
+
+    cfg, policy = EnvConfig(3, 3, 3), RandomPolicy(torch.Generator().manual_seed(0))
+    calls = {
+        "make_env_state": lambda *dev: make_env_state(cfg, 4, *dev),
+        "selfplay_reset": lambda *dev: selfplay_reset(cfg, policy, 4, *dev),
+        "validate": lambda *dev: validate(cfg, policy, policy, 4, *dev),
+    }
+    assert calls[entry]("cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("error,stops", [("kernel", True), ("other", False)])
+def test_train_mnk_stops_on_kernel_errors_only(monkeypatch, tmp_path, error, stops):
+    """A kernel that fails to build or launch ends the run; any other error
+    in an iteration is logged and the loop goes on, as in the JAX trainer."""
+    from rl_selfplay_mnk_tpu_torch.alg.ppo import PPOLearner
+    from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
+    from rl_selfplay_mnk_tpu_torch.utils.metrics import MetricsLogger
+
+    calls = []
+
+    def failing_learn(self, *args, **kwargs):
+        calls.append(1)
+        if error == "kernel":
+            raise KernelError("CUDA kernel env_step failed to launch: cudaError 700")
+        raise ValueError("bad batch")
+
+    monkeypatch.setattr(PPOLearner, "learn", failing_learn)
+    config = get_default_config()
+    config.update(mnk=(3, 3, 3), num_envs=8, n_steps=16, batch_size=32,
+                  total_environment_steps=8 * 16 * 3)
+    with MetricsLogger(run_name="errors", config=config, out_dir=str(tmp_path)) as logger:
+        if stops:
+            with pytest.raises(KernelError):
+                train_mnk(config, logger, device="cpu")
+        else:
+            summary = train_mnk(config, logger, device="cpu")
+            assert len(summary["errors"]) == 3
+    assert len(calls) == (1 if stops else 3)
