@@ -1,0 +1,699 @@
+// Dense softmax attention over board tokens for Hopper (sm_90a), forward and
+// backward, in the two layouts the transformer families use:
+//
+//     folded  q, k, v, o (BH, Dh, L)       one head per leading index, L contiguous
+//     packed  q, k, v, o (B, L, D = H*Dh)  a head's Dh values contiguous inside a row
+//
+//     s  = (q . k) * 1/sqrt(Dh)            f32
+//     p  = softmax(s) over the keys        f32
+//     o  = round(p) . v                    p rounded to the tensors' type first
+//     dp = dO . v
+//     ds = round(p * (dp - rowsum(dp * p)) * scale)
+//     dq = ds . k,  dk = ds^T . q,  dv = round(p)^T . dO
+//
+// with bf16 or f32 tensors, f32 sums, outputs rounded to the tensors' type.
+//
+// Replaces the TPU kernels of rl_selfplay_mnk_tpu/ops/pallas_attention.py:
+// _attn_kernel (attn_folded_fwd), _attn_bwd_kernel (attn_folded_bwd),
+// _packed_fwd_kernel (attn_packed_fwd) and _packed_bwd_kernel
+// (attn_packed_bwd). What those kernels exist for is kept: no L x L tensor
+// reaches device memory. Their head tiles, lane masks and padding masks are
+// answers to the TPU's memory tiling and are not carried over.
+//
+// Bound: a forward call moves 4*B*L*D elements and does 4*B*H*L*L*Dh
+// operations, a backward call 7*B*L*D elements and 10*B*H*L*L*Dh operations.
+// At the trainer's shapes (B = 8192, L = 81, H = 4, Dh = 14, and B = 4096,
+// L = 169, H = 2, Dh = 64, bf16) the memory time exceeds the tensor cores'
+// time, so bytes bound the ideal. These versions do their products with FMA
+// on the CUDA cores out of shared memory, and that is what bounds them.
+//
+// Design: one block per (board, head). The head's q, k, v (and dO) sit in
+// shared memory as f32 rows whose stride is a multiple of four floats and an
+// odd number of 16-byte words, so a lane per key reads four channels at a
+// time without bank conflicts. A warp owns four query rows at a time: each
+// value of k it loads serves four rows, and the four rows' values of q come
+// as broadcast loads. The rows' L <= 192 scores live in registers, six a
+// lane and row; max and sum go by warp shuffle; the probabilities pass
+// through a per-warp (L, 4) tile in shared memory and the lanes then own
+// head channels for the product with v. The backward runs a second pass in
+// which a warp owns four key columns and recomputes their probabilities
+// from the row maxima and sums the first pass stored, so dk and dv are
+// summed inside one warp in a fixed order: no atomics, the same bits every
+// run. o is staged over q's rows and dk, dv over k's and v's rows and
+// written out in the order of the layout; dq's rows go out as they are
+// finished. The ragged edge (L not a multiple of 4 or 32, any B) is masked
+// in the kernel.
+//
+// Each C entry returns cudaGetLastError() after the launch; the Python
+// wrapper (ops/attention.py) raises when it is not 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kColsPerLane = 6;             // key columns (or query rows) a lane holds
+constexpr int kMaxL = 32 * kColsPerLane;    // 192 tokens: 13x13 = 169 fits
+constexpr int kMaxDh = 64;                  // two head channels a lane
+constexpr int kFwdThreads = 512;  // most threads a forward block may have
+// A backward block holds more in registers: at most 256 threads, and two
+// blocks an SM, which caps a thread at 128 registers. Left to itself the
+// compiler takes 168 and only one block of a short board fits an SM.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdBlocksPerSM = 2;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+    return __float2bfloat16(v);
+}
+// v rounded to T (round to nearest even), as a float.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+    return to_f(from_f<T>(v));
+}
+
+// One head's (L, Dh) slab inside a tensor of either layout.
+struct Slab {
+    size_t base;
+    int stride_l;
+    int stride_d;
+};
+
+template <bool kPacked>
+__device__ __forceinline__ Slab slab_of(int head_index, int L, int dh, int H) {
+    Slab s;
+    if (kPacked) {
+        const int b = head_index / H, h = head_index - b * H;
+        s.base = static_cast<size_t>(b) * L * H * dh + static_cast<size_t>(h) * dh;
+        s.stride_l = H * dh;
+        s.stride_d = 1;
+    } else {
+        s.base = static_cast<size_t>(head_index) * dh * L;
+        s.stride_l = 1;
+        s.stride_d = L;
+    }
+    return s;
+}
+
+// A thread's walk over one head's slab in the order of device memory, a
+// block's width at a time: (hi, lo) with lo the index that is contiguous in
+// memory (the channel when packed, the token when folded). No division in
+// the loop.
+template <bool kPacked>
+struct SlabWalk {
+    int hi, lo, step_hi, step_lo, extent;
+    size_t stride_hi;
+
+    __device__ __forceinline__ SlabWalk(Slab s, int L, int dh) {
+        extent = kPacked ? dh : L;
+        stride_hi = kPacked ? s.stride_l : s.stride_d;
+        step_hi = blockDim.x / extent;
+        step_lo = blockDim.x - step_hi * extent;
+        hi = threadIdx.x / extent;
+        lo = threadIdx.x - hi * extent;
+    }
+    __device__ __forceinline__ size_t device_offset() const { return hi * stride_hi + lo; }
+    // Position in shared rows [l * ld + d].
+    __device__ __forceinline__ int shared_offset(int ld) const {
+        return kPacked ? hi * ld + lo : lo * ld + hi;
+    }
+    __device__ __forceinline__ void advance() {
+        lo += step_lo;
+        hi += step_hi;
+        if (lo >= extent) {
+            lo -= extent;
+            ++hi;
+        }
+    }
+};
+
+constexpr int kLoadsInFlight = 8;  // device loads a thread starts before it waits for one
+
+// Device memory -> shared rows dst[l * ld + d] as f32, the row's tail zeroed.
+template <bool kPacked, typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, Slab s, float* dst,
+                                          int L, int dh, int ld) {
+    const int n = L * dh;
+    const int width = blockDim.x;
+    SlabWalk<kPacked> walk(s, L, dh);
+    for (int idx = threadIdx.x; idx < n; idx += kLoadsInFlight * width) {
+        T vals[kLoadsInFlight];
+        int at[kLoadsInFlight];
+#pragma unroll
+        for (int u = 0; u < kLoadsInFlight; ++u) {
+            at[u] = walk.shared_offset(ld);
+            if (idx + u * width < n) vals[u] = src[s.base + walk.device_offset()];
+            walk.advance();
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadsInFlight; ++u) {
+            if (idx + u * width < n) dst[at[u]] = to_f(vals[u]);
+        }
+    }
+    const int pad = ld - dh;
+    for (int idx = threadIdx.x; idx < L * pad; idx += width) {
+        const int l = idx / pad;
+        dst[l * ld + dh + (idx - l * pad)] = 0.0f;
+    }
+}
+
+// Shared rows src[l * ld + d] -> device memory, rounded to T.
+template <bool kPacked, typename T>
+__device__ __forceinline__ void store_slab(T* __restrict__ dst, Slab s, const float* src,
+                                           int L, int dh, int ld) {
+    const int n = L * dh;
+    SlabWalk<kPacked> walk(s, L, dh);
+    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+        dst[s.base + walk.device_offset()] = from_f<T>(src[walk.shared_offset(ld)]);
+        walk.advance();
+    }
+}
+
+constexpr int kRows = 4;  // query rows (or key columns) a warp works on at a time
+
+// Row stride in floats: a multiple of 4 (16-byte loads) and an odd number of
+// 16-byte words (a lane per row then reads without bank conflicts).
+__host__ __device__ inline int row_stride(int dh) {
+    int ld = (dh + 3) & ~3;
+    if (((ld >> 2) & 1) == 0) ld += 4;
+    return ld;
+}
+
+// acc[r][t] = sum_d vec[voff[r] + d] * mat[(lane + 32 t) * ld + d], summed in
+// the order of d over the zero-padded row. Matrix rows past L - 1 repeat row
+// L - 1; the caller drops them.
+__device__ __forceinline__ void dots(const float* vec, const int (&voff)[kRows], const float* mat,
+                                     int L, int dh, int ld, int lane,
+                                     float (&acc)[kRows][kColsPerLane]) {
+    int off[kColsPerLane];
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+        off[t] = min(lane + 32 * t, L - 1) * ld;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r][t] = 0.0f;
+    }
+    const int dpad = (dh + 3) & ~3;
+    for (int d = 0; d < dpad; d += 4) {
+        float4 a[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) a[r] = *reinterpret_cast<const float4*>(vec + voff[r] + d);
+#pragma unroll
+        for (int t = 0; t < kColsPerLane; ++t) {
+            if (32 * t < L) {
+                const float4 b = *reinterpret_cast<const float4*>(mat + off[t] + d);
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    float v = acc[r][t];
+                    v = fmaf(a[r].x, b.x, v);
+                    v = fmaf(a[r].y, b.y, v);
+                    v = fmaf(a[r].z, b.z, v);
+                    v = fmaf(a[r].w, b.w, v);
+                    acc[r][t] = v;
+                }
+            }
+        }
+    }
+}
+
+// Four rows' probabilities from their raw scores, in place: x = s * scale,
+// m = max x, p = exp(x - m) * (1 / sum). Lanes hold columns lane + 32 t;
+// columns >= L give 0. The four rows' shuffles run side by side.
+__device__ __forceinline__ void softmax_rows(float (&p)[kRows][kColsPerLane], int L, int lane,
+                                             float scale, float (&m)[kRows],
+                                             float (&rinv)[kRows]) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) m[r] = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+        if (32 * t < L) {
+            const bool live = lane + 32 * t < L;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                p[r][t] = live ? __fmul_rn(p[r][t], scale) : -INFINITY;
+                m[r] = fmaxf(m[r], p[r][t]);
+            }
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], off));
+    }
+    float sum[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) sum[r] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+        if (32 * t < L) {
+            const bool live = lane + 32 * t < L;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                p[r][t] = live ? expf(__fsub_rn(p[r][t], m[r])) : 0.0f;
+                sum[r] += p[r][t];
+            }
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) sum[r] += __shfl_xor_sync(kFull, sum[r], off);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) rinv[r] = __frcp_rn(sum[r]);
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+        if (32 * t < L) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) p[r][t] = __fmul_rn(p[r][t], rinv[r]);
+        }
+    }
+}
+
+// How the 32 lanes split over head channels: 2^shift lanes side by side own
+// the channels, and the 32 >> shift groups share out the rows.
+__device__ __forceinline__ int channel_shift(int dh) {
+    int shift = 5;
+    while (shift > 0 && (1 << (shift - 1)) >= dh) --shift;
+    return shift;
+}
+
+// acc[r][c] = sum_j tile[j * 4 + r] * mat[j * ld + d] for d = (lane mod
+// 2^shift) + 32 c. Every lane ends with the whole sums of its channel.
+__device__ __forceinline__ void weighted_rows(const float* tile, const float* mat, int L, int dh,
+                                              int ld, int shift, int lane,
+                                              float (&acc)[kRows][2]) {
+    const int dw = 1 << shift;
+    const int dl = lane & (dw - 1);
+    const int group = lane >> shift;
+    const int groups = 32 >> shift;
+    const bool has0 = dl < dh;
+    const bool has1 = dl + 32 < dh;
+    const float* col = mat + dl;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.0f;
+#pragma unroll 4
+    for (int j = group; j < L; j += groups) {
+        const float4 w = *reinterpret_cast<const float4*>(tile + kRows * j);
+        if (has0) {
+            const float v = col[j * ld];
+            acc[0][0] = fmaf(w.x, v, acc[0][0]);
+            acc[1][0] = fmaf(w.y, v, acc[1][0]);
+            acc[2][0] = fmaf(w.z, v, acc[2][0]);
+            acc[3][0] = fmaf(w.w, v, acc[3][0]);
+        }
+        if (has1) {
+            const float v = col[j * ld + 32];
+            acc[0][1] = fmaf(w.x, v, acc[0][1]);
+            acc[1][1] = fmaf(w.y, v, acc[1][1]);
+            acc[2][1] = fmaf(w.z, v, acc[2][1]);
+            acc[3][1] = fmaf(w.w, v, acc[3][1]);
+        }
+    }
+    __syncwarp();
+    for (int off = dw; off < 32; off <<= 1) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+            acc[r][0] += __shfl_xor_sync(kFull, acc[r][0], off);
+            acc[r][1] += __shfl_xor_sync(kFull, acc[r][1], off);
+        }
+    }
+}
+
+// One value per row for column j of the warp's (L, 4) tile.
+__device__ __forceinline__ void put_tile(float* tile, int j, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(tile + kRows * j) = make_float4(a, b, c, d);
+}
+
+// The lanes of channel group 0 write their channel sums of the rows
+// i0 .. i0 + 3 (those below L) into the shared rows dst[i * ld + d].
+__device__ __forceinline__ void put_channels(float* dst, int i0, int L, int ld,
+                                             const float (&acc)[kRows][2], int dh, int shift,
+                                             int lane) {
+    if (lane >= (1 << shift)) return;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (i0 + r >= L) break;
+        if (lane < dh) dst[(i0 + r) * ld + lane] = acc[r][0];
+        if (lane + 32 < dh) dst[(i0 + r) * ld + lane + 32] = acc[r][1];
+    }
+}
+
+// The same, rounded to T, straight into device memory.
+template <typename T>
+__device__ __forceinline__ void write_channels(T* __restrict__ dst, Slab s, int i0, int L,
+                                               const float (&acc)[kRows][2], int dh, int shift,
+                                               int lane) {
+    if (lane >= (1 << shift)) return;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (i0 + r >= L) break;
+        T* row = dst + s.base + static_cast<size_t>(i0 + r) * s.stride_l;
+        if (lane < dh) row[static_cast<size_t>(lane) * s.stride_d] = from_f<T>(acc[r][0]);
+        if (lane + 32 < dh) row[static_cast<size_t>(lane + 32) * s.stride_d] = from_f<T>(acc[r][1]);
+    }
+}
+
+// Floats of shared memory one block needs.
+__host__ __device__ inline size_t fwd_smem_floats(int L, int dh, int threads) {
+    return static_cast<size_t>(3) * L * row_stride(dh)
+           + static_cast<size_t>(threads / 32) * kRows * L;
+}
+__host__ __device__ inline size_t bwd_smem_floats(int L, int dh, int threads) {
+    return static_cast<size_t>(4) * L * row_stride(dh)
+           + static_cast<size_t>(threads / 32) * 2 * kRows * L + static_cast<size_t>(3) * L;
+}
+
+template <bool kPacked, typename T>
+__device__ __forceinline__ void attn_fwd_body(float* smem, const T* __restrict__ q,
+                                              const T* __restrict__ k, const T* __restrict__ v,
+                                              T* __restrict__ o, int L, int dh, int H, float scale) {
+    const int ld = row_stride(dh);
+    const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* qs = smem;                               // (L, ld); row i becomes o's row i
+    float* ks = qs + L * ld;                        // (L, ld)
+    float* vs = ks + L * ld;                        // (L, ld)
+    float* tile = vs + L * ld + warp * kRows * L;   // this warp's (L, 4) probabilities
+    const Slab slab = slab_of<kPacked>(blockIdx.x, L, dh, H);
+    load_rows<kPacked, T>(q, slab, qs, L, dh, ld);
+    load_rows<kPacked, T>(k, slab, ks, L, dh, ld);
+    load_rows<kPacked, T>(v, slab, vs, L, dh, ld);
+    __syncthreads();
+
+    const int shift = channel_shift(dh);
+    for (int i0 = warp * kRows; i0 < L; i0 += nwarps * kRows) {
+        int voff[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) voff[r] = min(i0 + r, L - 1) * ld;
+        float p[kRows][kColsPerLane];
+        dots(qs, voff, ks, L, dh, ld, lane, p);
+        float m[kRows], rinv[kRows];
+        softmax_rows(p, L, lane, scale, m, rinv);
+#pragma unroll
+        for (int t = 0; t < kColsPerLane; ++t) {
+            const int j = lane + 32 * t;
+            if (j < L) {
+                put_tile(tile, j, round_to<T>(p[0][t]), round_to<T>(p[1][t]),
+                         round_to<T>(p[2][t]), round_to<T>(p[3][t]));
+            }
+        }
+        __syncwarp();
+        float acc[kRows][2];
+        weighted_rows(tile, vs, L, dh, ld, shift, lane, acc);
+        put_channels(qs, i0, L, ld, acc, dh, shift, lane);  // these rows of q are this warp's alone
+        __syncwarp();
+    }
+    __syncthreads();
+    store_slab<kPacked, T>(o, slab, qs, L, dh, ld);
+}
+
+template <bool kPacked, typename T>
+__device__ __forceinline__ void attn_bwd_body(float* smem, const T* __restrict__ q,
+                                              const T* __restrict__ k, const T* __restrict__ v,
+                                              const T* __restrict__ g, T* __restrict__ dq,
+                                              T* __restrict__ dk, T* __restrict__ dv,
+                                              int L, int dh, int H, float scale) {
+    const int ld = row_stride(dh);
+    const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* qs = smem;                 // (L, ld)
+    float* ks = qs + L * ld;          // (L, ld); row j becomes dk's row j
+    float* vs = ks + L * ld;          // (L, ld); row j becomes dv's row j
+    float* gs = vs + L * ld;          // (L, ld) the incoming gradient dO
+    float* tile_ds = gs + L * ld + warp * 2 * kRows * L;  // this warp's (L, 4) ds
+    float* tile_p = tile_ds + kRows * L;                  // and (L, 4) p
+    float* row_max = gs + L * ld + nwarps * 2 * kRows * L;  // (L,)
+    float* row_rinv = row_max + L;                          // (L,) 1 / sum
+    float* row_dot = row_rinv + L;                          // (L,) rowsum(dp * p)
+    const Slab slab = slab_of<kPacked>(blockIdx.x, L, dh, H);
+    load_rows<kPacked, T>(q, slab, qs, L, dh, ld);
+    load_rows<kPacked, T>(k, slab, ks, L, dh, ld);
+    load_rows<kPacked, T>(v, slab, vs, L, dh, ld);
+    load_rows<kPacked, T>(g, slab, gs, L, dh, ld);
+    __syncthreads();
+
+    const int shift = channel_shift(dh);
+    // Pass 1, a warp owns four query rows: each row's maximum, 1 / sum and
+    // rowsum(dp * p), and dq's rows.
+    for (int i0 = warp * kRows; i0 < L; i0 += nwarps * kRows) {
+        int voff[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) voff[r] = min(i0 + r, L - 1) * ld;
+        float p[kRows][kColsPerLane], dp[kRows][kColsPerLane];
+        dots(qs, voff, ks, L, dh, ld, lane, p);
+        dots(gs, voff, vs, L, dh, ld, lane, dp);
+        float m[kRows], rinv[kRows], rdot[kRows];
+        softmax_rows(p, L, lane, scale, m, rinv);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) rdot[r] = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kColsPerLane; ++t) {
+            if (lane + 32 * t < L) {
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) rdot[r] = fmaf(dp[r][t], p[r][t], rdot[r]);
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) rdot[r] += __shfl_xor_sync(kFull, rdot[r], off);
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+            if (lane == 0 && i0 + r < L) {
+                row_max[i0 + r] = m[r];
+                row_rinv[i0 + r] = rinv[r];
+                row_dot[i0 + r] = rdot[r];
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < kColsPerLane; ++t) {
+            const int j = lane + 32 * t;
+            if (j < L) {
+                float ds[kRows];
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    ds[r] = round_to<T>(
+                        __fmul_rn(__fmul_rn(p[r][t], __fsub_rn(dp[r][t], rdot[r])), scale));
+                }
+                put_tile(tile_ds, j, ds[0], ds[1], ds[2], ds[3]);
+            }
+        }
+        __syncwarp();
+        float acc[kRows][2];
+        weighted_rows(tile_ds, ks, L, dh, ld, shift, lane, acc);
+        write_channels<T>(dq, slab, i0, L, acc, dh, shift, lane);
+        __syncwarp();
+    }
+    __syncthreads();
+
+    // Pass 2, a warp owns four key columns: their p and ds over all query
+    // rows, recomputed with the same arithmetic as pass 1, then dk's and dv's
+    // rows, each summed over the query rows inside this warp.
+    for (int j0 = warp * kRows; j0 < L; j0 += nwarps * kRows) {
+        int voff[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) voff[r] = min(j0 + r, L - 1) * ld;
+        float s[kRows][kColsPerLane], dp[kRows][kColsPerLane];
+        dots(ks, voff, qs, L, dh, ld, lane, s);
+        dots(vs, voff, gs, L, dh, ld, lane, dp);
+#pragma unroll
+        for (int t = 0; t < kColsPerLane; ++t) {
+            const int i = lane + 32 * t;
+            if (i < L) {
+                const float m = row_max[i], rinv = row_rinv[i], rdot = row_dot[i];
+                float p[kRows], ds[kRows];
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    const float x = __fmul_rn(s[r][t], scale);
+                    p[r] = __fmul_rn(expf(__fsub_rn(x, m)), rinv);
+                    ds[r] = round_to<T>(__fmul_rn(__fmul_rn(p[r], __fsub_rn(dp[r][t], rdot)), scale));
+                    p[r] = round_to<T>(p[r]);
+                }
+                put_tile(tile_ds, i, ds[0], ds[1], ds[2], ds[3]);
+                put_tile(tile_p, i, p[0], p[1], p[2], p[3]);
+            }
+        }
+        __syncwarp();
+        float dkj[kRows][2], dvj[kRows][2];
+        weighted_rows(tile_ds, qs, L, dh, ld, shift, lane, dkj);
+        weighted_rows(tile_p, gs, L, dh, ld, shift, lane, dvj);
+        __syncwarp();
+        // These rows of k and v are read by this warp alone in this pass.
+        put_channels(ks, j0, L, ld, dkj, dh, shift, lane);
+        put_channels(vs, j0, L, ld, dvj, dh, shift, lane);
+    }
+    __syncthreads();
+    store_slab<kPacked, T>(dk, slab, ks, L, dh, ld);
+    store_slab<kPacked, T>(dv, slab, vs, L, dh, ld);
+}
+
+// The four kernels. The folded and the packed entry of one direction share
+// the arithmetic above and differ in how they address device memory.
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 1) attn_folded_fwd(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int L, int dh, float scale)
+{
+    extern __shared__ __align__(16) float smem[];
+    attn_fwd_body<false, T>(smem, q, k, v, o, L, dh, 1, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM) attn_folded_bwd(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    int L, int dh, float scale)
+{
+    extern __shared__ __align__(16) float smem[];
+    attn_bwd_body<false, T>(smem, q, k, v, g, dq, dk, dv, L, dh, 1, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 1) attn_packed_fwd(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int L, int dh, int H, float scale)
+{
+    extern __shared__ __align__(16) float smem[];
+    attn_fwd_body<true, T>(smem, q, k, v, o, L, dh, H, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM) attn_packed_bwd(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    int L, int dh, int H, float scale)
+{
+    extern __shared__ __align__(16) float smem[];
+    attn_bwd_body<true, T>(smem, q, k, v, g, dq, dk, dv, L, dh, H, scale);
+}
+
+// Lets a kernel use the card's whole per-block shared memory; once per kernel.
+template <typename Kernel>
+cudaError_t allow_large_smem(Kernel kernel, bool& done) {
+    if (done) return cudaSuccess;
+    int device = 0, max_optin = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_optin);
+    done = err == cudaSuccess;
+    return err;
+}
+
+bool shape_ok(long long heads, int L, int dh, int threads, int max_threads) {
+    return heads > 0 && heads <= 0x7fffffffLL && L >= 1 && L <= kMaxL && dh >= 1 && dh <= kMaxDh
+           && threads >= 32 && threads <= max_threads && threads % 32 == 0;
+}
+
+template <typename T>
+int folded_fwd(const void* q, const void* k, const void* v, void* o, int BH, int dh, int L,
+               int threads, cudaStream_t stream) {
+    static bool allowed = false;
+    const cudaError_t err = allow_large_smem(attn_folded_fwd<T>, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = fwd_smem_floats(L, dh, threads) * sizeof(float);
+    attn_folded_fwd<T><<<BH, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), L, dh, 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int folded_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+               void* dv, int BH, int dh, int L, int threads, cudaStream_t stream) {
+    static bool allowed = false;
+    const cudaError_t err = allow_large_smem(attn_folded_bwd<T>, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = bwd_smem_floats(L, dh, threads) * sizeof(float);
+    attn_folded_bwd<T><<<BH, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+        L, dh, 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int packed_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int dh,
+               int threads, cudaStream_t stream) {
+    static bool allowed = false;
+    const cudaError_t err = allow_large_smem(attn_packed_fwd<T>, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = fwd_smem_floats(L, dh, threads) * sizeof(float);
+    attn_packed_fwd<T><<<B * H, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), L, dh, H, 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int packed_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+               void* dv, int B, int L, int H, int dh, int threads, cudaStream_t stream) {
+    static bool allowed = false;
+    const cudaError_t err = allow_large_smem(attn_packed_bwd<T>, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = bwd_smem_floats(L, dh, threads) * sizeof(float);
+    attn_packed_bwd<T><<<B * H, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+        L, dh, H, 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared memory one block needs, in bytes: the wrapper holds it against the
+// card's per-block limit before it launches.
+extern "C" size_t attn_smem_bytes(int backward, int L, int dh, int threads) {
+    return (backward ? bwd_smem_floats(L, dh, threads) : fwd_smem_floats(L, dh, threads))
+           * sizeof(float);
+}
+
+extern "C" int attn_max_tokens() { return kMaxL; }
+extern "C" int attn_max_head_dim() { return kMaxDh; }
+extern "C" int attn_max_threads(int backward) { return backward ? kBwdThreads : kFwdThreads; }
+
+extern "C" int attn_folded_fwd_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                      void* o, int BH, int dh, int L, int threads, void* stream) {
+    if (BH == 0) return 0;
+    if (!shape_ok(BH, L, dh, threads, kFwdThreads)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? folded_fwd<__nv_bfloat16>(q, k, v, o, BH, dh, L, threads, s)
+                   : folded_fwd<float>(q, k, v, o, BH, dh, L, threads, s);
+}
+
+extern "C" int attn_folded_bwd_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                      const void* g, void* dq, void* dk, void* dv, int BH, int dh,
+                                      int L, int threads, void* stream) {
+    if (BH == 0) return 0;
+    if (!shape_ok(BH, L, dh, threads, kBwdThreads)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? folded_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, BH, dh, L, threads, s)
+                   : folded_bwd<float>(q, k, v, g, dq, dk, dv, BH, dh, L, threads, s);
+}
+
+extern "C" int attn_packed_fwd_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                      void* o, int B, int L, int H, int dh, int threads,
+                                      void* stream) {
+    if (B == 0) return 0;
+    if (H < 1 || !shape_ok(static_cast<long long>(B) * H, L, dh, threads, kFwdThreads))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? packed_fwd<__nv_bfloat16>(q, k, v, o, B, L, H, dh, threads, s)
+                   : packed_fwd<float>(q, k, v, o, B, L, H, dh, threads, s);
+}
+
+extern "C" int attn_packed_bwd_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                      const void* g, void* dq, void* dk, void* dv, int B, int L,
+                                      int H, int dh, int threads, void* stream) {
+    if (B == 0) return 0;
+    if (H < 1 || !shape_ok(static_cast<long long>(B) * H, L, dh, threads, kBwdThreads))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? packed_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, B, L, H, dh, threads, s)
+                   : packed_bwd<float>(q, k, v, g, dq, dk, dv, B, L, H, dh, threads, s);
+}

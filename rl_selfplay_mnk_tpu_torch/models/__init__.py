@@ -1,5 +1,5 @@
 from .convert import flax_to_state_dict, state_dict_to_flax
-from .fold_bn import fold_batchnorm
+from .fold_bn import fold_batchnorm, snapshot
 from .registry import (
     ARCHITECTURE_REGISTRY,
     create_model_from_architecture,
@@ -8,15 +8,20 @@ from .registry import (
     train_apply,
 )
 from .resnet import ResNetActorCritic
+from .sgr_transformer import SGRTransformerActorCritic
+from .transformer import TransformerActorCritic
 
 __all__ = [
     "ARCHITECTURE_REGISTRY",
     "ResNetActorCritic",
+    "SGRTransformerActorCritic",
+    "TransformerActorCritic",
     "create_model_from_architecture",
     "init_network",
     "eval_apply",
     "train_apply",
     "fold_batchnorm",
+    "snapshot",
     "flax_to_state_dict",
     "state_dict_to_flax",
 ]

@@ -12,6 +12,10 @@ layers become the identity (gamma=1, beta=0, mu=0, var=1-eps), the copy is
 marked ``folded`` and frozen, and each residual block gets its weights in
 the residual-block kernel's layout (im2col (9C, C) in the compute dtype,
 f32 biases). The source model is left as it is.
+
+``snapshot`` is what the trainer takes of the learner for an opponent, a
+pool entry or the benchmark: the folded copy for a model with BatchNorm, a
+frozen deep copy for one without (the transformer families).
 """
 
 from __future__ import annotations
@@ -45,3 +49,10 @@ def fold_batchnorm(model):
     folded.folded = True
     folded.requires_grad_(False)
     return folded
+
+
+def snapshot(model):
+    """A frozen copy of ``model`` for eval-mode forwards."""
+    if hasattr(model, "conv_bn_pairs"):
+        return fold_batchnorm(model)
+    return copy.deepcopy(model).requires_grad_(False)

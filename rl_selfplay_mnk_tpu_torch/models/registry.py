@@ -1,12 +1,13 @@
 """Architecture registry (counterpart of the JAX package's ``models/registry.py``).
 
-This slice of the port holds the ResNet family. The JAX package's other
-names (CNN, MLP and transformer families) are known here and raise a clear
-``ValueError`` until they are ported.
+The port holds the ResNet and the transformer families (plain and SGR). The
+JAX package's other names (the CNN and MLP families) are known here and
+raise a clear ``ValueError`` until they are ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -14,11 +15,27 @@ import torch.nn as nn
 
 from .common import RELU_GAIN, HeadMLP
 from .resnet import ResNetActorCritic
+from .sgr_transformer import SGRTransformerActorCritic
+from .transformer import TransformerActorCritic
 
 
 def _resnet(channels, blocks, hidden):
     return lambda action_dim, obs_shape, dtype: ResNetActorCritic(
         action_dim, obs_shape, channels=channels, num_blocks=blocks,
+        head_hidden=hidden, dtype=dtype,
+    )
+
+
+def _tfm(d, layers, heads, hidden, ffn=None, qkv=None):
+    return lambda action_dim, obs_shape, dtype: TransformerActorCritic(
+        action_dim, obs_shape, embed_dim=d, num_layers=layers, num_heads=heads,
+        head_hidden=hidden, dtype=dtype, ffn_dim=ffn, qkv_features=qkv,
+    )
+
+
+def _sgr(d, layers, heads, hidden):
+    return lambda action_dim, obs_shape, dtype: SGRTransformerActorCritic(
+        action_dim, obs_shape, embed_dim=d, num_layers=layers, num_heads=heads,
         head_hidden=hidden, dtype=dtype,
     )
 
@@ -31,13 +48,18 @@ ARCHITECTURE_REGISTRY: Dict[str, Callable] = {
     "resnet_b_l": _resnet(80, 5, 256),
     "resnet_b_s_w": _resnet(64, 1, 128),
     "resnet_b_l_w": _resnet(128, 2, 256),
+    "transformer_s": _tfm(96, 3, 3, 256),
+    "transformer_l": _tfm(192, 5, 6, 256),
+    "transformer_b_s": _tfm(56, 2, 4, 128),
+    "transformer_b_l": _tfm(96, 5, 8, 256),
+    "transformer_c_s": _sgr(56, 2, 4, 128),
+    "transformer_c_l": _sgr(96, 5, 8, 256),
+    "transformer_b_s_w": _tfm(128, 1, 2, 128, ffn=0),
+    "transformer_b_l_w": _tfm(256, 1, 4, 256, ffn=512),
 }
 
 NOT_YET_PORTED = (
-    "cnn_s", "cnn_l", "cnn_b_s", "cnn_b_l",
-    "transformer_s", "transformer_l", "transformer_b_s", "transformer_b_l",
-    "transformer_c_s", "transformer_c_l", "transformer_b_s_w", "transformer_b_l_w",
-    "mlp_tiny",
+    "cnn_s", "cnn_l", "cnn_b_s", "cnn_b_l", "mlp_tiny",
 )
 
 
@@ -70,18 +92,66 @@ def create_model_from_architecture(
     return module, arch_params
 
 
+_TRUNCATED_STD = 0.87962566103423978  # std of a unit normal truncated at +-2
+
+
+def _init_orthogonal(layer, generator):
+    nn.init.orthogonal_(layer.weight, gain=RELU_GAIN, generator=generator)
+    nn.init.zeros_(layer.bias)
+
+
+def _init_lecun_normal(layer, generator):
+    """flax's default kernel init: truncated normal (+-2 sigma) of variance
+    1 / fan_in; zero bias."""
+    std = math.sqrt(1.0 / layer.weight.shape[1]) / _TRUNCATED_STD
+    nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    nn.init.zeros_(layer.bias)
+
+
+def _init_normal_002(layer, generator):
+    nn.init.normal_(layer.weight, std=0.02, generator=generator)
+    nn.init.zeros_(layer.bias)
+
+
+def _init_gate(layer, generator):
+    del generator
+    nn.init.zeros_(layer.weight)
+    nn.init.constant_(layer.bias, 2.0)
+
+
+_INIT_SCHEMES = {
+    "orthogonal": _init_orthogonal,
+    "lecun_normal": _init_lecun_normal,
+    "normal_0.02": _init_normal_002,
+    "gate": _init_gate,
+}
+
+
 @torch.no_grad()
 def init_network(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """The JAX package's init policy, in place: orthogonal (gain sqrt 2) conv
-    and linear weights with zero biases, ones/zeros norms, and the heads'
-    last linear layer at gain 0.01 (policy) or 1.0 (value)."""
+    """The JAX package's init policy, in place, layer by layer.
+
+    A conv or linear layer is initialised by its ``init_scheme`` attribute:
+    ``orthogonal`` (gain sqrt 2, zero bias) where it has none, which covers
+    the ResNet body and every head; in a transformer body ``lecun_normal``
+    (flax's default), ``normal_0.02`` for the cell embedding and ``gate``
+    (weight 0, bias 2.0) for the SGR gates. A ``pos_embed`` parameter is
+    normal(0.02), norms are ones/zeros, and the heads' last linear layer is
+    orthogonal at gain 0.01 (policy) or 1.0 (value).
+
+    torch's generator gives other numbers than JAX's from the same seed: the
+    two packages agree in distribution (and exactly in the constants), not
+    value by value.
+    """
     for layer in module.modules():
         if isinstance(layer, (nn.Conv2d, nn.Linear)):
-            nn.init.orthogonal_(layer.weight, gain=RELU_GAIN, generator=generator)
-            nn.init.zeros_(layer.bias)
+            _INIT_SCHEMES[getattr(layer, "init_scheme", "orthogonal")](layer, generator)
         elif isinstance(layer, nn.LayerNorm):
             nn.init.ones_(layer.weight)
             nn.init.zeros_(layer.bias)
+        pos_embed = getattr(layer, "pos_embed", None)
+        if isinstance(pos_embed, nn.Parameter):
+            nn.init.normal_(pos_embed, std=0.02, generator=generator)
     for layer in module.modules():
         if isinstance(layer, HeadMLP):
             nn.init.orthogonal_(layer.dense2.weight, gain=layer.final_gain, generator=generator)
@@ -89,8 +159,8 @@ def init_network(module: nn.Module, generator: Optional[torch.Generator] = None)
 
 
 def eval_apply(model: nn.Module, observation: torch.Tensor, action_mask=None):
-    """Eval-mode forward -> (logits, value). Folds BatchNorm first when the
-    model is not folded. ``action_mask`` is accepted for symmetry; masking
+    """Eval-mode forward -> (logits, value). A model with BatchNorm folds it
+    first when it is not folded; one without runs as it is. ``action_mask`` is accepted for symmetry; masking
     is the caller's (``ops.masked``)."""
     del action_mask
     with torch.no_grad():
@@ -98,7 +168,7 @@ def eval_apply(model: nn.Module, observation: torch.Tensor, action_mask=None):
 
 
 def train_apply(model: nn.Module, observation: torch.Tensor):
-    """Train-mode forward -> (logits, value): batch-statistic BatchNorm,
-    running statistics updated in place."""
+    """Train-mode forward -> (logits, value): batch-statistic BatchNorm with
+    the running statistics updated in place, where the model has any."""
     return model(observation, train=True)
 

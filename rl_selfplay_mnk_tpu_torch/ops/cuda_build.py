@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("env_step", "resblock")
+SOURCES = ("env_step", "resblock", "attention")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``selfplay/policies.py``. A policy's act
 signature is ``apply(params, obs, generator, deterministic) -> actions``
 with ``obs = {"observation": (E, 2, M, N) f32, "action_mask": (E, A) bool}``
-and int64 actions. A network policy's params are a BatchNorm-folded model
-(``models.fold_bn.fold_batchnorm``); its forward is eval mode.
+and int64 actions. A network policy's params are a frozen snapshot of a
+model (``models.fold_bn.snapshot``: BatchNorm folded where the model has
+it, a plain copy for a transformer); its forward is eval mode.
 """
 
 from __future__ import annotations
@@ -57,5 +58,6 @@ def make_network_policy(network_apply: Callable) -> Callable:
 
 
 def NNPolicy(network_apply: Callable, model, generator: Optional[torch.Generator] = None) -> Policy:
-    """Policy over a network (pass a folded model: eval forwards fold first)."""
+    """Policy over a network. Pass a snapshot: a model with BatchNorm that
+    is not folded yet folds anew on every eval forward."""
     return Policy(apply=make_network_policy(network_apply), params=model, generator=generator)

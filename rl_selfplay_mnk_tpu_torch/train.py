@@ -3,11 +3,12 @@
 
   * opponent schedule: 15% a historical snapshot from the pool, 85% the
     current network, drawn from a host ``random.Random(seed)``; every
-    opponent is a BatchNorm-folded copy, folded once when it is drawn;
+    opponent is a frozen snapshot (``models.fold_bn.snapshot``: BatchNorm
+    folded where the model has it), taken once when it is drawn;
   * a pool insert every 20 iterations, FIFO eviction;
   * validation against the benchmark every ``validation_interval``
-    iterations; the benchmark (first the untrained network) is replaced,
-    folded anew, when the score rate exceeds 0.60;
+    iterations; the benchmark (first the untrained network) is replaced by
+    a new snapshot when the score rate exceeds 0.60;
   * per-iteration fault handling: log the error and continue, except for
     a kernel that fails to build, load or launch (``KernelError``), which
     ends the run.
@@ -16,6 +17,13 @@ Runs on the card unless ``device="cpu"`` (``--device cpu``) is asked for.
 Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.train --total-steps 589824 --device cuda
+    python -m rl_selfplay_mnk_tpu_torch.train --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
+
+``--arch`` also sets the family's learning rate and entropy schedule
+(``apply_family_hparams``). On the command line, and only there, ``--mnk 13
+13 5`` also brings the big-board horizons (``big_board_horizons``: 600M env
+steps, the entropy schedule over 300M; ``--total-steps`` still overrides the
+first), so the second line is the JAX package's full 13x13 recipe.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 from .alg.ppo import PPOConfig, PPOLearner, PPOOptimizer, TrainingMetrics, pick_group_size
 from .alg.schedules import entropy_coef_at, make_lr_schedule
 from .env.mnk_env import EnvConfig
-from .models.fold_bn import fold_batchnorm
+from .models.fold_bn import snapshot
 from .ops.cuda_build import KernelError
 from .models.registry import create_model_from_architecture, eval_apply, init_network
 from .selfplay.opponent_pool import OpponentPool
@@ -75,6 +83,46 @@ def get_default_config() -> Dict[str, Any]:
         "pool_eviction": "fifo",
         "device": None,  # None = cuda
     }
+
+
+def apply_family_hparams(config: Dict[str, Any], arch: str) -> Dict[str, Any]:
+    """Per-family learning rate and entropy settings, as the JAX package's
+    ``train_all.apply_family_hparams``."""
+    if "transformer" in arch:
+        config["entropy_coef_schedule"]["params"]["final_coef"] = 0.01
+        config["entropy_coef"] = 0.10
+        config["learning_rate"] = 12e-4
+    elif "resnet" in arch:
+        config["entropy_coef_schedule"]["params"]["final_coef"] = 0.001
+        config["entropy_coef"] = 0.05
+        config["learning_rate"] = 8e-4
+    return config
+
+
+def big_board_horizons(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The horizons of the JAX package's 13x13x5 recipe
+    (``tools/run_full13.py``): 600M env steps, the entropy schedule over 300M."""
+    config["total_environment_steps"] = 600_000_000
+    config["entropy_coef_schedule"]["params"]["total_steps"] = 300_000_000
+    return config
+
+
+def build_config(arch: Optional[str] = None, mnk=None, batch_size: Optional[int] = None,
+                 total_steps: Optional[int] = None) -> Dict[str, Any]:
+    """The default config with a named architecture's family settings, a
+    board, a minibatch size and a length; what is not given stays at the
+    default."""
+    config = get_default_config()
+    if arch:
+        config["architecture_name"] = arch
+        apply_family_hparams(config, arch)
+    if mnk is not None:
+        config["mnk"] = tuple(mnk)
+    if batch_size:
+        config["batch_size"] = batch_size
+    if total_steps:
+        config["total_environment_steps"] = total_steps
+    return config
 
 
 def create_learner(config: Dict[str, Any], hw: HardwareConfig):
@@ -134,12 +182,13 @@ def train_mnk(
     learner, env_cfg, lr_schedule = create_learner(config, hw)
     policy_generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 2)
 
-    def network_policy(folded, generator=policy_generator):
-        return NNPolicy(eval_apply, folded, generator)
+    def network_policy(frozen, generator=policy_generator):
+        return NNPolicy(eval_apply, frozen, generator)
 
     # The benchmark starts as the untrained network; the pool is seeded with
-    # the same snapshot. Opponents only run eval forwards, so all are folded.
-    benchmark = fold_batchnorm(learner.model)
+    # the same snapshot. Opponents only run eval forwards, so all are frozen
+    # snapshots (BatchNorm folded where there is any).
+    benchmark = snapshot(learner.model)
     pool = OpponentPool(
         max_size=config["opponent_pool"],
         seed=config["seed"],
@@ -163,7 +212,7 @@ def train_mnk(
             if host_rng.random() < 0.15:
                 opponent, source = pool.get_random_opponent(), "historical"
             else:
-                opponent, source = fold_batchnorm(learner.model), "current_agent"
+                opponent, source = snapshot(learner.model), "current_agent"
             logger.log({"training/opponent_source": source}, step=(i + 1) * steps_per_iteration)
 
             ent_coef = entropy_coef_at(
@@ -177,7 +226,7 @@ def train_mnk(
             summary["iterations"].append(dataclasses.asdict(metrics))
 
             if i % 20 == 0:
-                pool.add_opponent(fold_batchnorm(learner.model), weight=last_score_rate)
+                pool.add_opponent(snapshot(learner.model), weight=last_score_rate)
 
             if i > 0 and i % config["validation_interval"] == 0:
                 print(f"--- Running validation at step {i} ({current_env_steps:,} env steps) ---")
@@ -186,7 +235,7 @@ def train_mnk(
                 )
                 validation_res = validate(
                     env_cfg,
-                    network_policy(fold_batchnorm(learner.model), generator),
+                    network_policy(snapshot(learner.model), generator),
                     network_policy(benchmark, generator),
                     config["validation_episodes"],
                     hw.device,
@@ -205,7 +254,7 @@ def train_mnk(
                 )
                 if score_rate > config["benchmark_update_threshold_score"]:
                     print(f"--- New benchmark agent at step {i}! ---")
-                    benchmark = fold_batchnorm(learner.model)
+                    benchmark = snapshot(learner.model)
                     logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
         except KernelError:
             raise
@@ -276,36 +325,37 @@ def handle_training_error(logger: MetricsLogger, error: Exception, iteration: in
     )
 
 
-def main(argv=None) -> None:
+def config_from_args(argv=None) -> Dict[str, Any]:
+    """The command line's config. ``--mnk 13 13 5`` is the big-board recipe:
+    it also sets ``big_board_horizons``."""
     parser = argparse.ArgumentParser(description="Train self-play PPO on MNK (PyTorch port)")
     parser.add_argument("--arch", default=None, help="architecture registry name")
-    parser.add_argument("--m", type=int, default=None)
-    parser.add_argument("--n", type=int, default=None)
-    parser.add_argument("--k", type=int, default=None)
+    parser.add_argument("--mnk", type=int, nargs=3, default=None, metavar=("M", "N", "K"))
     parser.add_argument("--num-envs", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--total-steps", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--run-name", default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
-    config = get_default_config()
-    if args.arch:
-        config["architecture_name"] = args.arch
-    board = (args.m, args.n, args.k)
-    if any(v is not None for v in board):
-        if any(v is None for v in board):
-            parser.error("--m/--n/--k must be given together")
-        config["mnk"] = board
-    if args.num_envs:
-        config["num_envs"] = args.num_envs
+    config = build_config(args.arch, args.mnk, args.batch_size)
+    if config["mnk"] == (13, 13, 5):
+        big_board_horizons(config)
     if args.total_steps:
         config["total_environment_steps"] = args.total_steps
+    if args.num_envs:
+        config["num_envs"] = args.num_envs
     if args.seed is not None:
         config["seed"] = args.seed
     config["run_name"] = args.run_name
     config["device"] = args.device
-    with MetricsLogger(run_name=args.run_name, config=config) as logger:
+    return config
+
+
+def main(argv=None) -> None:
+    config = config_from_args(argv)
+    with MetricsLogger(run_name=config["run_name"], config=config) as logger:
         train_mnk(config, logger)
 
 

@@ -1,16 +1,19 @@
 """Where one training iteration's time goes, on the card.
 
-Runs the default training config (9x9x5, ``resnet_b_s``, 384 envs,
-n_steps 256, batch 8192, 4 epochs) for ``--warmup`` iterations, then traces
-one more iteration with ``torch.profiler`` and prints: the wall time of the
-rollout and the update, the device's busy time (sum of kernel times; one
-stream, so no overlap) and idle share for each, the launches of the port's
-two CUDA kernels, and the kernels that take the most device time. The last
-line is one JSON object with those numbers.
+Runs a training config (by default 9x9x5, ``resnet_b_s``, 384 envs,
+n_steps 256, batch 8192, 4 epochs; ``--arch``, ``--mnk`` and ``--batch-size``
+as in ``train.py``) for ``--warmup`` iterations, then traces one more
+iteration with ``torch.profiler`` and prints: the wall time of the rollout
+and the update, the device's busy time (sum of kernel times; one stream, so
+no overlap) and idle share for each, the launches of the port's CUDA
+kernels, and the kernels that take the most device time. The last line is
+one JSON object with those numbers.
 
 Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json]
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
 """
 
 from __future__ import annotations
@@ -24,13 +27,39 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..alg.schedules import entropy_coef_at
-from ..models.fold_bn import fold_batchnorm
+from ..models.fold_bn import snapshot
 from ..models.registry import eval_apply
+from ..ops.attention import (
+    attention_folded_bwd,
+    attention_folded_fwd,
+    attention_packed_bwd,
+    attention_packed_fwd,
+)
 from ..ops.env_step import fused_step
 from ..ops.resblock import fused_residual_block
 from ..selfplay.policies import NNPolicy
-from ..train import create_learner, get_default_config
+from ..train import build_config, create_learner
 from .hardware import detect_hardware_config
+
+
+# The port's kernel wrappers, by the name their launch counts are reported under.
+PORT_KERNELS = {
+    "env_step": fused_step,
+    "resblock": fused_residual_block,
+    "attn_folded_fwd": attention_folded_fwd,
+    "attn_folded_bwd": attention_folded_bwd,
+    "attn_packed_fwd": attention_packed_fwd,
+    "attn_packed_bwd": attention_packed_bwd,
+}
+
+
+def reset_launches() -> None:
+    for wrapper in PORT_KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in PORT_KERNELS.items()}
 
 
 def kernel_times(prof) -> dict:
@@ -46,22 +75,23 @@ def kernel_times(prof) -> dict:
     return out
 
 
-def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15) -> dict:
+def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
+                      arch: str | None = None, mnk=None, batch_size: int | None = None) -> dict:
     hw = detect_hardware_config("cuda")
-    config = get_default_config()
+    config = build_config(arch, mnk, batch_size)
     learner, _, _ = create_learner(config, hw)
     generator = torch.Generator(device=hw.device).manual_seed(1)
     ent = entropy_coef_at(config["entropy_coef"], config["entropy_coef_schedule"], 0,
                           config["num_envs"], config["n_steps"])
     for _ in range(warmup):
-        learner.learn(NNPolicy(eval_apply, fold_batchnorm(learner.model), generator), ent)
+        learner.learn(NNPolicy(eval_apply, snapshot(learner.model), generator), ent)
 
     phases = {}
     kernels = {}
     launches = {}
     for phase in ("rollout", "update"):
-        opponent = NNPolicy(eval_apply, fold_batchnorm(learner.model), generator)
-        fused_step.launches = fused_residual_block.launches = 0
+        opponent = NNPolicy(eval_apply, snapshot(learner.model), generator)
+        reset_launches()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -77,7 +107,7 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15) 
         busy = sum(t for t, _ in times.values()) / 1e6
         phases[phase] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
                          "kernel_launches": sum(c for _, c in times.values())}
-        launches[phase] = {"env_step": fused_step.launches, "resblock": fused_residual_block.launches}
+        launches[phase] = read_launches()
         kernels[phase] = sorted(
             ({"name": k[:90], "device_ms": t / 1e3, "count": c} for k, (t, c) in times.items()),
             key=lambda r: -r["device_ms"],
@@ -89,7 +119,8 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15) 
               f"port kernels {json.dumps(launches[phase])}")
         for r in kernels[phase]:
             print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
-    return {"device": torch.cuda.get_device_name(0), "phases": phases,
+    return {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
+            "mnk": list(config["mnk"]), "batch_size": config["batch_size"], "phases": phases,
             "port_kernel_launches": launches, "top_kernels": kernels}
 
 
@@ -97,8 +128,12 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--trace", default=None, help="write Chrome traces next to this path")
+    parser.add_argument("--arch", default=None, help="architecture registry name")
+    parser.add_argument("--mnk", type=int, nargs=3, default=None, metavar=("M", "N", "K"))
+    parser.add_argument("--batch-size", type=int, default=None)
     args = parser.parse_args(argv)
-    print(json.dumps(profile_iteration(args.warmup, args.trace)))
+    print(json.dumps(profile_iteration(args.warmup, args.trace, arch=args.arch, mnk=args.mnk,
+                                       batch_size=args.batch_size)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,156 @@
+"""The port's attention (plain versions, used on CPU tensors) against the JAX
+package's Pallas kernels in interpret mode and its XLA reference, on the
+same numpy arrays: the folded and the packed pair, forward and backward, and
+``tiny_head_attention`` with its autograd gradient through both branches of
+the dispatch. Float32 on the CPU, and bf16 once to pin where p and ds are
+rounded."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rl_selfplay_mnk_tpu.ops import pallas_attention as jattn
+from rl_selfplay_mnk_tpu_torch.ops import attention as tattn
+
+# As tests/test_pallas_attention.py: f32 sums in another order.
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+BWD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def arrays(seed, shape, n):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+
+
+def to_torch(xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) for x in xs]
+
+
+def test_folded_forward_matches_pallas_interpret_and_xla():
+    xs = arrays(0, (12, 14, 25), 3)
+    got = tattn.attention_folded_reference(*to_torch(xs)).numpy()
+    js = [jnp.asarray(x) for x in xs]
+    np.testing.assert_allclose(
+        got, np.asarray(jattn._attention_fwd_pallas(*js, tile_heads=4, interpret=True)), **FWD_TOL)
+    np.testing.assert_allclose(got, np.asarray(jattn._attention_xla(*js)), **FWD_TOL)
+    # On CPU tensors the wrapper and the autograd function are the plain version.
+    np.testing.assert_array_equal(tattn.attention_folded_fwd(*to_torch(xs)).numpy(), got)
+    np.testing.assert_array_equal(tattn.attention_folded(*to_torch(xs)).numpy(), got)
+
+
+def test_folded_backward_matches_pallas_interpret():
+    xs = arrays(1, (8, 14, 25), 4)
+    want = jattn._attention_bwd_pallas(*[jnp.asarray(x) for x in xs], tile_heads=4, interpret=True)
+    got = tattn.attention_folded_bwd_reference(*to_torch(xs))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+    for g, w in zip(tattn.attention_folded_bwd(*to_torch(xs)), got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("b,l,h,dh", [(2, 25, 4, 14), (2, 25, 2, 64)])
+def test_packed_pair_matches_pallas_interpret(b, l, h, dh):
+    xs = arrays(2, (b, l, h * dh), 4)
+    js = [jnp.asarray(x) for x in xs]
+    want = jattn._attention_packed_fwd_pallas(*js[:3], h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_packed_reference(*to_torch(xs[:3]), h, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    np.testing.assert_array_equal(tattn.attention_packed_fwd(*to_torch(xs[:3]), h, dh).numpy(),
+                                  got.numpy())
+    want = jattn._attention_packed_bwd_pallas(*js, h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_packed_bwd_reference(*to_torch(xs), h, dh)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+    for g, w in zip(tattn.attention_packed_bwd(*to_torch(xs), h, dh), got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_folded_and_packed_are_one_function():
+    b, l, h, dh = 3, 9, 2, 8
+    q, k, v, g = to_torch(arrays(3, (b, l, h, dh), 4))
+
+    def fold(t):
+        return t.permute(0, 2, 3, 1).reshape(b * h, dh, l)
+
+    def unfold(t):
+        return t.reshape(b, h, dh, l).permute(0, 3, 1, 2).reshape(b, l, h * dh)
+
+    pack = [t.reshape(b, l, h * dh) for t in (q, k, v, g)]
+    np.testing.assert_allclose(
+        unfold(tattn.attention_folded_reference(fold(q), fold(k), fold(v))).numpy(),
+        tattn.attention_packed_reference(*pack[:3], h, dh).numpy(), rtol=1e-6, atol=1e-6)
+    for a, c in zip(tattn.attention_folded_bwd_reference(*(fold(t) for t in (q, k, v, g))),
+                    tattn.attention_packed_bwd_reference(*pack, h, dh)):
+        np.testing.assert_allclose(unfold(a).numpy(), c.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,l,h,dh,branch", [(2, 9, 2, 8, "folded"), (2, 9, 2, 32, "packed")])
+def test_tiny_head_attention_and_gradient_match_jax(b, l, h, dh, branch, monkeypatch):
+    """Both branches of the dispatch: the forward and the autograd gradient
+    (through the Function's backward) against the JAX function and jax.grad
+    with its kernels in interpret mode."""
+    xs = arrays(4, (b, l, h, dh), 4)
+    w = jnp.asarray(xs[3])
+
+    def loss_j(q, k, v):
+        return jnp.sum(jattn.tiny_head_attention(q, k, v, interpret=True) * w)
+
+    js = [jnp.asarray(x) for x in xs[:3]]
+    want = jattn.tiny_head_attention(*js, interpret=True)
+    want_grads = jax.grad(loss_j, argnums=(0, 1, 2))(*js)
+
+    calls = []
+    for name in ("attention_folded_bwd", "attention_packed_bwd"):
+        inner = getattr(tattn, name)
+        monkeypatch.setattr(tattn, name,
+                            lambda *a, _inner=inner, _name=name: calls.append(_name) or _inner(*a))
+    leaves = [t.requires_grad_(True) for t in to_torch(xs[:3])]
+    got = tattn.tiny_head_attention(*leaves)
+    assert got.shape == (b, l, h, dh)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FWD_TOL)
+    (got * torch.from_numpy(xs[3])).sum().backward()
+    assert calls == [f"attention_{branch}_bwd"]
+    for t, wg in zip(leaves, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wg), **BWD_TOL)
+
+
+def test_function_saves_inputs_only_and_casts_the_gradient():
+    q, k, v = (t.requires_grad_(True) for t in to_torch(arrays(5, (4, 8, 9), 3), torch.bfloat16))
+    out = tattn.attention_folded(q, k, v)
+    assert out.dtype == torch.bfloat16
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 3 and all(s.shape == q.shape for s in saved)
+    g = torch.from_numpy(arrays(6, (4, 8, 9), 1)[0])  # an f32 gradient
+    out.backward(g.to(torch.bfloat16))
+    want = tattn.attention_folded_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                g.to(torch.bfloat16))
+    for t, w in zip((q, k, v), want):
+        assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+    with torch.no_grad():
+        assert tattn.attention_folded(q, k, v).grad_fn is None
+
+
+def test_bf16_rounding_points_match_pallas_interpret():
+    """bf16 inputs: p is rounded to bf16 before P.V and before dv, ds before
+    dq and dk, and the outputs to bf16. Held against the Pallas kernels in
+    interpret mode within two bf16 ulps of the result's size (one from each
+    side's sum order flipping a rounding), far below what a missing rounding
+    point would move."""
+    xs = arrays(7, (6, 14, 25), 4)
+    ts = to_torch(xs, torch.bfloat16)
+    js = [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+    tol = dict(rtol=2.0**-7, atol=2.0**-7)
+    want = jattn._attention_fwd_pallas(*js[:3], tile_heads=2, interpret=True)
+    got = tattn.attention_folded_reference(*ts[:3])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
+    want = jattn._attention_bwd_pallas(*js, tile_heads=2, interpret=True)
+    for g, w in zip(tattn.attention_folded_bwd_reference(*ts), want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)), **tol)
+    # The rounding points themselves: the plain version's p~ and ds~ are bf16 values.
+    q, k, v, do = (t.transpose(1, 2) for t in ts)
+    p = tattn._probabilities_reference(q, k)
+    o_unrounded_p = torch.matmul(p, v.float()).to(torch.bfloat16)
+    assert not torch.equal(o_unrounded_p.transpose(1, 2), got)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
+from rl_selfplay_mnk_tpu_torch.ops import attention as attn
 from rl_selfplay_mnk_tpu_torch.ops.env_step import fused_step, fused_step_reference
 from rl_selfplay_mnk_tpu_torch.ops.resblock import (
     fused_residual_block,
@@ -59,3 +60,100 @@ def test_resblock_kernel_within_tolerance(device, dtype, tol, b, m, c):
     got = fused_residual_block(x, w1, b1, w2, b2, m, m).float()
     want = fused_residual_block_reference(x, w1, b1, w2, b2, m, m).float()
     assert ((got - want).abs() <= tol + tol * want.abs()).all()
+
+
+# Attention kernels against their plain versions.
+# f32: |kernel - plain| <= 2e-5 * (1 + |plain|): sums over Dh <= 64 and L <= 169
+# terms in another order.
+# bf16: both sides do the same f32 arithmetic up to the order of the sums, so an
+# element differs only where that lands across a rounding step of the output (one
+# ulp, at most 2^-7 of the value) or of a rounded p or ds (one term of a sum over
+# L moves by 2^-7 of itself). Per output tensor: |kernel - plain| <= 2^-7 * |plain|
+# + 2^-10 * max|plain|, and at most 2^-9 of the elements, plus 4, differ at all.
+ATTN_F32_TOL = 2e-5
+ATTN_BF16_RTOL, ATTN_BF16_ATOL_OF_MAX, ATTN_BF16_DIFFER_SHARE = 2.0**-7, 2.0**-10, 2.0**-9
+ATTN_SHAPES = [(5, 81, 4, 14), (3, 169, 8, 12), (8, 9, 4, 14), (5, 81, 3, 32), (3, 169, 2, 64),
+               (2, 25, 2, 8)]
+
+
+def attn_inputs(device, dtype, b, l, h, dh, packed, n=4):
+    g = torch.Generator(device=device).manual_seed(b * 1000 + l)
+    shape = (b, l, h * dh) if packed else (b * h, dh, l)
+    return [torch.randn(shape, device=device, generator=g).to(dtype) for _ in range(n)]
+
+
+def assert_attn_close(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        limit = ATTN_F32_TOL * (1.0 + want.abs())
+    else:
+        limit = ATTN_BF16_RTOL * want.abs() + ATTN_BF16_ATOL_OF_MAX * want.abs().max()
+        differ = int((err > 0).sum())
+        assert differ <= ATTN_BF16_DIFFER_SHARE * err.numel() + 4, (
+            f"{what}: {differ} of {err.numel()} elements differ")
+    excess = (err / limit).max()
+    assert excess <= 1, f"{what}: the worst error is {float(excess)} of its limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True], ids=["folded", "packed"])
+@pytest.mark.parametrize("b,l,h,dh", ATTN_SHAPES)
+def test_attention_kernels_within_tolerance(device, dtype, packed, b, l, h, dh):
+    q, k, v, do = attn_inputs(device, dtype, b, l, h, dh, packed)
+    if packed:
+        fwd, bwd, extra = attn.attention_packed_fwd, attn.attention_packed_bwd, (h, dh)
+        fwd_ref, bwd_ref = attn.attention_packed_reference, attn.attention_packed_bwd_reference
+    else:
+        fwd, bwd, extra = attn.attention_folded_fwd, attn.attention_folded_bwd, ()
+        fwd_ref, bwd_ref = attn.attention_folded_reference, attn.attention_folded_bwd_reference
+    before = fwd.launches, bwd.launches
+    got = fwd(q, k, v, *extra)
+    grads = bwd(q, k, v, do, *extra)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert_attn_close(got, fwd_ref(q, k, v, *extra), dtype, "o")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, bwd_ref(q, k, v, do, *extra)):
+        assert_attn_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("b,l,h,dh", [(3, 25, 4, 14), (3, 25, 2, 32)])
+def test_attention_function_backward_matches_plain_autograd(device, b, l, h, dh):
+    """The Function's backward (the backward kernel) against autograd through
+    the plain forward, in f32, through both branches of the dispatch."""
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v, w = (torch.randn((b, l, h, dh), device=device, generator=g) for _ in range(4))
+
+    def plain(q, k, v):
+        s = torch.einsum("bihd,bjhd->bhij", q, k) / dh**0.5
+        return torch.einsum("bhij,bjhd->bihd", torch.softmax(s, -1), v)
+
+    grads = []
+    for fn in (attn.tiny_head_attention, plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert_attn_close(got, want, torch.float32, "grad")
+    counters = (attn.attention_folded_bwd, attn.attention_packed_bwd)
+    assert counters[dh >= 32].launches > 0
+
+
+def test_attention_no_grad_builds_no_graph(device):
+    q, k, v = attn_inputs(device, torch.bfloat16, 2, 9, 2, 16, packed=True, n=3)
+    q.requires_grad_(True)
+    with torch.no_grad():
+        out = attn.attention_packed(q, k, v, 2, 16)
+    assert out.grad_fn is None and not out.requires_grad
+
+
+def test_attention_raises_beyond_the_kernels_limits(device):
+    from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
+
+    q = torch.zeros((2, 8, 200), device=device)
+    with pytest.raises(KernelError):
+        attn.attention_folded_fwd(q, q, q)
+    q = torch.zeros((2, 9, 128), device=device)
+    with pytest.raises(KernelError):
+        attn.attention_packed_fwd(q, q, q, 1, 128)

@@ -1,7 +1,13 @@
 """The port's ResNet against the JAX package's, through the converter:
 parameter counts, train-mode forward with the running-statistic update,
 eval forward, gradients, BatchNorm folding, and the plain residual-block
-kernel against the Pallas kernel in interpret mode. Float32 on the CPU."""
+kernel against the Pallas kernel in interpret mode. Then the transformer
+families (plain, no-FFN speed tier, SGR) the same way: forward, gradients,
+parameter counts, the converter's round trip, a committed 13x13 export, and
+the distributions ``init_network`` draws from. Float32 on the CPU."""
+
+import pathlib
+
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ from rl_selfplay_mnk_tpu_torch.models import (
     flax_to_state_dict,
     fold_batchnorm,
     init_network,
+    snapshot,
     state_dict_to_flax,
 )
 from rl_selfplay_mnk_tpu_torch.models.common import conv3x3
@@ -60,7 +67,7 @@ def test_parameter_count_13x13():
     assert count(model) == 163_875
 
 
-@pytest.mark.parametrize("name", ["cnn_b_s", "transformer_b_s_w", "mlp_tiny", "nope"])
+@pytest.mark.parametrize("name", ["cnn_b_s", "cnn_l", "mlp_tiny", "nope"])
 def test_unported_or_unknown_names_raise(name):
     with pytest.raises(ValueError):
         create_model_from_architecture(name, (2, 9, 9), 81)
@@ -219,3 +226,143 @@ def test_plain_resblock_matches_unfolded_conv_block():
             want = blk(x, False, torch.float32).permute(0, 2, 3, 1).reshape(6, 25, 32)
             got = fused_residual_block_reference(x_cl, *fblk.kernel_weights, 5, 5)
             np.testing.assert_allclose(want.numpy(), got.numpy(), atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# transformer families
+# ---------------------------------------------------------------------------
+
+TRANSFORMERS = ["transformer_b_s", "transformer_b_s_w", "transformer_c_s"]
+ALL_TRANSFORMERS = ["transformer_s", "transformer_l", "transformer_b_s", "transformer_b_l",
+                    "transformer_c_s", "transformer_c_l", "transformer_b_s_w", "transformer_b_l_w"]
+EXPORT = (pathlib.Path(__file__).resolve().parent.parent / "evidence"
+          / "exports_full13_transformer_b_s_w" / "model_00340.msgpack")
+
+
+def jax_transformer(name, seed, m, n):
+    """Initialised flax variables with every leaf perturbed, so biases,
+    norms and the zero-initialised gates are all non-trivial."""
+    module, _ = jax_create(name, (2, m, n), m * n)
+    variables = jax_init(module, (2, m, n), jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    variables = jax.tree.map(
+        lambda x: (np.asarray(x, np.float32) + 0.05 * rng.normal(size=x.shape)).astype(np.float32),
+        variables)
+    return module, variables
+
+
+def port_transformer(name, variables, m, n):
+    model, _ = create_model_from_architecture(name, (2, m, n), m * n)
+    model.load_state_dict(flax_to_state_dict(variables))
+    return model
+
+
+@pytest.mark.parametrize("name", ALL_TRANSFORMERS)
+def test_transformer_parameter_counts_match_flax(name):
+    module, _ = jax_create(name, (2, 9, 9), 81)
+    variables = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                   jnp.zeros((1, 2, 9, 9)), train=False))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(variables))
+    model, _ = create_model_from_architecture(name, (2, 9, 9), 81)
+    assert count(model) == want
+
+
+@pytest.mark.parametrize("m", [3, 5])
+@pytest.mark.parametrize("name", TRANSFORMERS)
+def test_transformer_forward_gradients_and_round_trip_match_flax(name, m):
+    module, variables = jax_transformer(name, 11, m, m)
+    model = port_transformer(name, variables, m, m)
+    assert count(model) == sum(x.size for x in jax.tree.leaves(variables))
+    assert_tree_close(state_dict_to_flax(flax_to_state_dict(variables), model.num_heads),
+                      variables, 0, 0)
+
+    obs = boards(12, 8, m, m)
+    eval_j, train_j = jax_apply_fns(module)
+    lj, vj = eval_j(variables, jnp.asarray(obs))
+    for train in (False, True):  # no batch-dependent layer: one forward
+        lt, vt = model(torch.from_numpy(obs), train=train)
+        np.testing.assert_allclose(np.asarray(lj), lt.detach().numpy(), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(np.asarray(vj), vt.detach().numpy(), atol=ATOL, rtol=RTOL)
+    frozen = snapshot(model)
+    lf, vf = eval_apply(frozen, torch.from_numpy(obs))
+    assert torch.equal(lf, lt.detach()) and torch.equal(vf, vt.detach())
+    assert frozen is not model and not any(p.requires_grad for p in frozen.parameters())
+
+    rng = np.random.default_rng(13)
+    r1 = rng.normal(size=(8, m * m)).astype(np.float32)
+    r2 = rng.normal(size=(8, 1)).astype(np.float32)
+
+    def loss_j(params):
+        (l, v), _ = train_j({"params": params, "batch_stats": {}}, jnp.asarray(obs))
+        return jnp.sum(l * r1) + jnp.sum(v * r2)
+
+    grads_j = jax.grad(loss_j)(variables["params"])
+    ((lt * torch.from_numpy(r1)).sum() + (vt * torch.from_numpy(r2)).sum()).backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    assert_tree_close(state_dict_to_flax(grads, model.num_heads)["params"], grads_j,
+                      atol=2e-4, rtol=1e-3)
+
+
+def test_committed_13x13_export_gives_the_same_forward():
+    """A committed export of the 13x13 run (d128, H2, no FFN), read by the
+    JAX package's loader, through the converter: the two forwards agree."""
+    from rl_selfplay_mnk_tpu.utils.model_export import load_any_model
+
+    module, variables, metadata = load_any_model(str(EXPORT.parent), EXPORT.stem)
+    assert metadata.architecture_name == "transformer_b_s_w"
+    variables = jax.tree.map(lambda x: np.asarray(x, np.float32), dict(variables))
+    model = port_transformer("transformer_b_s_w", variables, 13, 13)
+    obs = boards(14, 2, 13, 13)
+    eval_j, _ = jax_apply_fns(module)
+    lj, vj = eval_j(variables, jnp.asarray(obs))
+    lt, vt = eval_apply(model, torch.from_numpy(obs))
+    np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(np.asarray(vj), vt.numpy(), atol=ATOL, rtol=RTOL)
+    assert float(np.abs(lt.numpy()).max()) > 0.1  # trained weights, not an init
+
+
+@pytest.mark.parametrize("name", ["transformer_l", "transformer_c_l"])
+def test_init_network_transformer_distributions(name):
+    """torch's generator gives other numbers than JAX's, so the two inits are
+    held together by their distributions: the body at flax's default
+    (truncated normal of variance 1 / fan_in), embeddings normal(0.02), the
+    SGR gates at their constants, the heads orthogonal."""
+    model, _ = create_model_from_architecture(name, (2, 9, 9), 81)
+    init_network(model, torch.Generator().manual_seed(0))
+    module, _ = jax_create(name, (2, 9, 9), 81)
+    params = jax_init(module, (2, 9, 9), jax.random.PRNGKey(0))["params"]
+    flax = state_dict_to_flax(model.state_dict(), model.num_heads)["params"]
+    block = "SGRBlock_0" if "SGRBlock_0" in params else "EncoderLayer_0"
+
+    def std(tree, *path):
+        for key in path:
+            tree = tree[key]
+        return float(np.asarray(tree).std())
+
+    attn = "MultiHeadDotProductAttention_0"
+    body = [(block, attn, "query", "kernel"), (block, attn, "out", "kernel"),
+            (block, "Dense_0", "kernel"), (block, "Dense_1", "kernel")]
+    d = params["cell_embed"]["kernel"].shape[1]
+    for path, fan_in in zip(body, (d, d, d, 4 * d)):
+        assert std(flax, *path) == pytest.approx(fan_in**-0.5, rel=0.03), path
+        assert std(flax, *path) == pytest.approx(std(params, *path), rel=0.05), path
+        bias = np.asarray(flax[path[0]][path[1]][path[2]]["bias"] if len(path) == 4
+                          else flax[path[0]][path[1]]["bias"])
+        assert float(np.abs(bias).max()) == 0.0
+    w = model.layers[0].attn.query.weight.detach()
+    assert float(w.abs().max()) <= 2.0 * d**-0.5 / 0.87962566103423978 + 1e-6  # truncated at 2 sigma
+    assert std(flax, "pos_embed") == pytest.approx(0.02, rel=0.03)
+    assert std(flax, "pos_embed") == pytest.approx(std(params, "pos_embed"), rel=0.05)
+    # The cell embedding has 2 * d values: a loose bound on its std, and the reference's.
+    assert std(flax, "cell_embed", "kernel") == pytest.approx(0.02, rel=0.2)
+    assert float(np.abs(flax["cell_embed"]["bias"]).max()) == 0.0
+    if block == "SGRBlock_0":
+        for gate in ("gate1", "gate2"):
+            np.testing.assert_array_equal(flax[block][gate]["kernel"], params[block][gate]["kernel"])
+            np.testing.assert_array_equal(flax[block][gate]["bias"], params[block][gate]["bias"])
+            assert float(flax[block][gate]["bias"][0]) == 2.0
+    np.testing.assert_array_equal(flax[block]["LayerNorm_0"]["scale"], 1.0)
+    w = model.heads.policy_head.dense2.weight.detach()
+    np.testing.assert_allclose((w @ w.T).numpy(), 1e-4 * np.eye(81), atol=1e-8)
+    w = model.heads.value_head.dense1.weight.detach()  # (hidden, 81): orthonormal columns * sqrt 2
+    np.testing.assert_allclose((w.T @ w).numpy(), 2.0 * np.eye(81), atol=1e-5)

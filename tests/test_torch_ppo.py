@@ -86,13 +86,13 @@ def make_trajectory(seed, t, e, m, n):
     return traj, final
 
 
-def test_one_update_matches_jax():
+def one_update_matches_jax(arch, first_layer):
     """Prepare + one epoch of 4 minibatches with the JAX epoch's own
     indices injected: parameters within 1e-5 (absolute) + 1e-4 (relative)
     after four AdamW steps at lr 1e-3, running statistics within 1e-5."""
     m = n = k = 3
     e, t, batch = 8, 8, 16
-    module, _ = jax_create("resnet_b_s", (2, m, n), m * n)
+    module, _ = jax_create(arch, (2, m, n), m * n)
     variables = jax_init(module, (2, m, n), jax.random.PRNGKey(0))
     variables = jax.tree.map(np.asarray, variables)
     traj, final = make_trajectory(1, t, e, m, n)
@@ -119,7 +119,7 @@ def test_one_update_matches_jax():
     idx = np.asarray(jppo._minibatch_indices(cfg_j, epoch_keys[0]))
 
     # Port: the same parameters, trajectory and indices.
-    model, _ = create_model_from_architecture("resnet_b_s", (2, m, n), m * n)
+    model, _ = create_model_from_architecture(arch, (2, m, n), m * n)
     model.load_state_dict(flax_to_state_dict(variables))
     opt = tppo.PPOOptimizer(model.parameters(), lambda c: lr)
     traj_t = {k_: torch.from_numpy(np.array(v)) for k_, v in traj.items()}
@@ -130,18 +130,28 @@ def test_one_update_matches_jax():
                                        [torch.from_numpy(idx.astype(np.int64))])
     assert opt.count == cfg_t.num_minibatches == 4
 
-    got = state_dict_to_flax(model.state_dict())
+    got = state_dict_to_flax(model.state_dict(), getattr(model, "num_heads", None))
     for tree_j, tree_t, atol, rtol in ((params_j, got["params"], 1e-5, 1e-4),
                                        (bs_j, got["batch_stats"], 1e-5, 1e-5)):
         flat_t = dict(jax.tree_util.tree_flatten_with_path(tree_t)[0])
         for path, x in jax.tree_util.tree_flatten_with_path(tree_j)[0]:
             np.testing.assert_allclose(np.asarray(x), flat_t[path], atol=atol, rtol=rtol,
                                        err_msg=jax.tree_util.keystr(path))
-    moved = np.abs(np.asarray(params_j["Conv_0"]["kernel"]) -
-                   np.asarray(variables["params"]["Conv_0"]["kernel"])).max()
+    moved = np.abs(np.asarray(params_j[first_layer]["kernel"]) -
+                   np.asarray(variables["params"][first_layer]["kernel"])).max()
     assert moved > 1e-4  # the update did move the parameters
     for key in ("actor_loss", "critic_loss", "entropy_loss", "grad_norm", "approx_kl"):
         np.testing.assert_allclose(float(sums_j[key]) / 4, float(metrics[key]), atol=1e-5, rtol=1e-4)
+
+
+def test_one_update_matches_jax():
+    one_update_matches_jax("resnet_b_s", "Conv_0")
+
+
+def test_one_transformer_update_matches_jax():
+    """The same for ``transformer_b_s``: the update runs the attention's
+    backward (the plain version on the CPU) under autograd."""
+    one_update_matches_jax("transformer_b_s", "cell_embed")
 
 
 def test_minibatch_indices_cover_every_row_once():
@@ -189,6 +199,46 @@ def test_train_mnk_cpu_runs_logs_jax_keys_and_validates(tmp_path):
                 ("win_rate", "loss_rate", "draw_rate", "score_rate", "games_played")}
     assert jax_training_keys() | val_keys <= logged
     assert not any(k.startswith("error/") for k in logged)
+
+
+def test_train_mnk_cpu_runs_a_transformer_with_snapshots_and_validation(tmp_path):
+    """Two tiny iterations of a transformer: every opponent is a frozen
+    snapshot (no BatchNorm to fold), and the second iteration validates."""
+    from rl_selfplay_mnk_tpu_torch.train import build_config
+
+    config = build_config("transformer_b_s", (3, 3, 3), 32, 8 * 16 * 2)
+    assert (config["learning_rate"], config["entropy_coef"]) == (12e-4, 0.10)
+    config.update(num_envs=8, n_steps=16, validation_episodes=16, validation_interval=1)
+    with MetricsLogger(run_name="cpu_tfm", config=config, out_dir=str(tmp_path)) as logger:
+        summary = train_mnk(config, logger, device="cpu")
+    assert summary["errors"] == [] and len(summary["iterations"]) == 2
+    for it in summary["iterations"]:
+        assert all(np.isfinite(v) for v in it.values())
+    assert len(summary["validations"]) == 1
+    assert type(summary["model"]).__name__ == "TransformerActorCritic"
+
+
+def test_build_config_is_the_13x13_recipe():
+    """``--arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096`` against the
+    JAX package's own 13x13 recipe, key by key."""
+    from rl_selfplay_mnk_tpu.train_all import apply_family_hparams
+    from rl_selfplay_mnk_tpu_torch.train import build_config, config_from_args
+
+    want = jtrain.get_default_config()
+    want.update(architecture_name="transformer_b_s_w", mnk=(13, 13, 5),
+                total_environment_steps=600_000_000, batch_size=4096)
+    want["entropy_coef_schedule"]["params"]["total_steps"] = 300_000_000
+    apply_family_hparams(want, "transformer_b_s_w")
+    got = config_from_args("--arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096".split())
+    for key in got:
+        if key not in ("device", "run_name"):
+            assert got[key] == want[key], key
+    # The horizons belong to the command line's recipe, not to the board.
+    plain = build_config("transformer_b_s_w", (13, 13, 5), 4096)
+    assert plain["total_environment_steps"] == jtrain.get_default_config()["total_environment_steps"]
+    assert plain["entropy_coef_schedule"]["params"]["total_steps"] == 125_000_000
+    short = config_from_args("--mnk 13 13 5 --total-steps 1000".split())
+    assert short["total_environment_steps"] == 1000
 
 
 def test_rollout_with_injected_draws_is_reproducible():

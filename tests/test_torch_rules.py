@@ -89,6 +89,47 @@ def test_kernel_wrappers_take_no_plain_route_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_step(EnvConfig(3, 3, 3), state, torch.empty((2,), dtype=torch.int64, device="meta"))
 
+    from rl_selfplay_mnk_tpu_torch.ops import attention
+
+    folded = torch.empty((4, 8, 9), device="meta")
+    packed = torch.empty((2, 9, 16), device="meta")
+    for call in (
+        lambda: attention.attention_folded_fwd(folded, folded, folded),
+        lambda: attention.attention_folded_bwd(folded, folded, folded, folded),
+        lambda: attention.attention_packed_fwd(packed, packed, packed, 2, 8),
+        lambda: attention.attention_packed_bwd(packed, packed, packed, packed, 2, 8),
+        lambda: attention.attention_folded(folded, folded, folded),
+        lambda: attention.attention_packed(packed, packed, packed, 2, 8),
+        lambda: attention.tiny_head_attention(*[torch.empty((2, 9, 2, 8), device="meta")] * 3),
+        lambda: attention.tiny_head_attention(*[torch.empty((2, 9, 2, 32), device="meta")] * 3),
+    ):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+ATTENTION_LIBRARY_CALLS = ("scaled_dot_product_attention", "torch.compile", "bmm(", "einsum(",
+                           "matmul(", " @ ", "baddbmm(")
+
+
+def test_attention_module_computes_attention_in_its_kernels_only():
+    """Outside its ``*_reference`` functions ``ops/attention.py`` calls no
+    library routine for the attention arithmetic: no fused attention, no
+    compiled plain version, no batched matrix product."""
+    path = REPO / "rl_selfplay_mnk_tpu_torch" / "ops" / "attention.py"
+    source = path.read_text()
+    tree = ast.parse(source)
+    references = [n for n in ast.walk(tree)
+                  if isinstance(n, ast.FunctionDef) and n.name.endswith("_reference")]
+    assert len(references) >= 4
+    lines = source.splitlines()
+    for node in references:
+        for i in range(node.lineno - 1, node.end_lineno):
+            lines[i] = ""
+    rest = "\n".join(lines[ast.get_docstring(tree).count("\n") + 2:])
+    for call in ATTENTION_LIBRARY_CALLS:
+        assert call not in rest, f"ops/attention.py uses {call!r} outside a *_reference function"
+    assert "matmul(" in source  # the plain versions do use it
+
 
 @pytest.mark.parametrize("entry", ["make_env_state", "selfplay_reset", "validate"])
 def test_env_entry_points_default_to_the_card(monkeypatch, entry):
