@@ -11,17 +11,19 @@ Phases, in order; any failure exits non-zero:
    kernels from ``rl_selfplay_mnk_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the build time;
 2. env-step kernel (K1) against its plain version over random legal
-   playouts with random ``active`` masks: 3x3x3, 5x5x4 and 9x9x5 at
-   E = 8192, 8191, 384 (rollout) and 256 (validation), 60 steps each; all
-   six outputs bitwise equal;
+   playouts with random ``active`` masks: 3x3x3, 5x5x4, 9x9x5 and 13x13x5
+   at E = 8192, 8191, 384 (rollout), 256 (validation), 16 (a tournament
+   half-pairing) and 1 (a game of ``play``), 60 steps each; all six outputs
+   bitwise equal;
 3. residual-block kernel (K2) against its plain version (f32 products, TF32
-   off) at B in {256, 384, 8191}, 9x9, C in {32, 64}, bf16 and f32, within the
-   stated tolerances;
-4. the four attention kernels (K3 folded forward, K4 folded backward, K8
-   packed forward, K9 packed backward) against their plain versions, bf16
-   and f32, at the shapes the train paths give them (update minibatch,
-   rollout and validation batch) and at odd, small and wide ones, within
-   the stated tolerances;
+   off) at B in {256, 384, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 and f32,
+   within the stated tolerances;
+4. the seven attention kernels (K3 folded forward, K4 folded backward, K8
+   packed forward, K9 packed backward; K5 lane-slice forward, K6 and K7
+   in-kernel-fold forward and backward, a block per board) against their
+   plain versions, bf16 and f32, at the shapes the paths give them (update
+   minibatch, rollout and validation batch, a tournament half-pairing) and
+   at odd, small and wide ones, within the stated tolerances;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -31,24 +33,40 @@ Phases, in order; any failure exits non-zero:
    unfolded plain-conv f32 forward on real positions, beside a bf16 control
    without the kernels;
 6. train path A: the same trainer with ``transformer_b_s`` and the
-   transformer family's hyper-parameters (9x9x5, batch 8192) for 6
-   iterations with one validation; K1's and the folded pair's counters above
-   0, the packed pair's 0;
+   transformer family's hyper-parameters (9x9x5, batch 8192) for 4
+   iterations with a validation and an export after each but the first; K1,
+   the no-gradient forward kernel (K5) and the pair of the default
+   with-gradient route above 0, the packed pair 0;
 7. train path B: ``transformer_b_s_w`` on 13x13x5 (batch 4096) for 3
    iterations with one validation; K1's and the packed pair's counters
    above 0, the folded pair's 0; then the trained network's bf16 forward
    through the kernels against its f32 forward with the plain attention on
    real positions, beside a bf16 control with the plain attention;
-8. timings at the paths' shapes, after warm-up: device time per call from
+8. train path C: ``transformer_c_s`` (the gated family) for 2 iterations
+   with its ``attention_fn`` forced to the with-gradient route that the
+   default does not take, so the folded pair and the in-kernel-fold pair are
+   each launched on a train path;
+9. the serving path, through ``compare_models.main`` and ``play.main``:
+   (a) a 9x9x5 round robin, 32 games a pairing, over the six committed
+   ``models/tpu_smoke30`` exports and path A's fresh exports: K1, K2 and K5
+   above 0, every pairing's games add up, the last committed export takes
+   at least 24 of 32 from the first and ELO rises with the iteration; (b) a
+   13x13x5 round robin over four committed ``transformer_b_s_w`` exports: K1
+   and K8 above 0, the last takes at least 28 of 32 from the first; then one
+   game of the last ``tpu_smoke30`` export against the random policy, which
+   the export wins;
+10. timings at the paths' shapes, after warm-up: device time per call from
    ``torch.profiler`` (``ms``, ``plain_ms``, ``library_ms``) and the
    per-call time between CUDA events (``call_ms``...) for each kernel, its
    plain version and a library yardstick that the port never calls (two
    ``F.conv2d`` for K2, ``F.scaled_dot_product_attention`` for the attention
    kernels: its forward, and forward plus backward beside the backward
    kernels); each attention kernel at its update minibatch and at the
-   rollout batch of 384; both attention pairs at one shape of either kind,
-   transposes included, for the folded/packed threshold; one ``kernels``
-   JSON line.
+   rollout batch of 384, K5-K7 also at a tournament half-pairing of 16; the
+   four ways through an attention kernel (fold, in-kernel fold, packed pair,
+   lane slice) at the 9x9 and 13x13 batches of either kind, layout
+   operations included, for the dispatch (the ``threshold`` line); one
+   ``kernels`` JSON line with all nine kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -61,10 +79,13 @@ import subprocess
 import sys
 import time
 
-K1_SHAPES = ((3, 3, 3), (5, 5, 4), (9, 9, 5))
-K1_ENVS = (8192, 8191, 384, 256)  # large, odd, and the rollout and validation batches
+K1_SHAPES = ((3, 3, 3), (5, 5, 4), (9, 9, 5), (13, 13, 5))
+# large, odd, the rollout and validation batches, a tournament half-pairing
+# and the single game of play.py
+K1_ENVS = (8192, 8191, 384, 256, 16, 1)
 K1_STEPS = 60
-K2_CASES = [(b, c) for b in (256, 384, 8191) for c in (32, 64)]
+# Validation and rollout batches, an odd one, a tournament half-pairing, one game.
+K2_CASES = [(b, c) for b in (256, 384, 8191, 16, 1) for c in (32, 64)]
 # |kernel - plain| <= atol + rtol * |plain|
 K2_TOL = {
     "float32": (1e-4, 1e-4),  # f32 sums over 9C <= 576 products, in another order
@@ -74,11 +95,19 @@ K2_TOL = {
 # minibatch, the rollout batch of 384 and the validation batch of 256. Then
 # an odd batch, 13x13 tokens and a 3x3 board for the folded pair; for the
 # packed pair also Dh = 32, four heads of 64 (the largest head of the
-# registry) and a head width that is not 16-byte aligned.
+# registry), a head width that is not 16-byte aligned, a tournament
+# half-pairing of 16 on 13x13, and 13x13 with eight heads of 12.
 ATTN_FOLDED_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (256, 81, 4, 14),
                       (383, 81, 4, 14), (64, 169, 8, 12), (8, 9, 4, 14))
 ATTN_PACKED_SHAPES = ((4096, 169, 2, 64), (384, 169, 2, 64), (256, 169, 2, 64),
-                      (384, 81, 3, 32), (383, 169, 2, 64), (64, 169, 4, 64), (4, 81, 4, 14))
+                      (384, 81, 3, 32), (383, 169, 2, 64), (64, 169, 4, 64), (4, 81, 4, 14),
+                      (16, 169, 2, 64), (384, 169, 8, 12), (16, 169, 8, 12))
+# The one-block-per-board kernels (K5-K7): the update minibatch, the rollout
+# and validation batches, a tournament half-pairing of 16, an odd batch, four
+# 13x13 batches of eight heads and a 3x3 board.
+ATTN_BOARD_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (256, 81, 4, 14), (16, 81, 4, 14),
+                     (383, 81, 4, 14), (2048, 169, 8, 12), (64, 169, 8, 12), (8, 9, 4, 14),
+                     (384, 169, 8, 12), (16, 169, 8, 12))
 # f32: |kernel - plain| <= 2e-5 * (1 + |plain|): sums over Dh <= 64 and
 # L <= 169 terms in another order.
 ATTN_F32_TOL = 2e-5
@@ -92,15 +121,29 @@ ATTN_F32_TOL = 2e-5
 # about 3% of it. Measured on an NVIDIA H100 80GB HBM3, 700.00 W: the absolute part
 # needed is at most 3.8e-4 * max|plain|, the share that differs at most 3.3e-4.
 ATTN_BF16_RTOL, ATTN_BF16_ATOL_OF_MAX, ATTN_BF16_DIFFER_SHARE = 2.0**-7, 2.0**-10, 2.0**-9
-# The shapes the train paths give the attention kernels: (update minibatch,
-# rollout batch) x (L, H, Dh).
-ATTN_PATH_SHAPES = {"folded": ((8192, 384), (81, 4, 14)), "packed": ((4096, 384), (169, 2, 64))}
+PALLAS = "rl_selfplay_mnk_tpu/ops/pallas_attention.py"
+BOARD_SOURCE = "rl_selfplay_mnk_tpu_torch/csrc/attention_board.cu"
+HEAD_SOURCE = "rl_selfplay_mnk_tpu_torch/csrc/attention.cu"
+# name -> (layout of its tensors, backward?, TPU kernel, source, (L, H, Dh) and
+# the batches it is timed at: update minibatch, rollout, and for K5-K7 a
+# tournament half-pairing).
 ATTN_KERNELS = {
-    "attn_folded_fwd": ("folded", False, "rl_selfplay_mnk_tpu/ops/pallas_attention.py:54"),
-    "attn_folded_bwd": ("folded", True, "rl_selfplay_mnk_tpu/ops/pallas_attention.py:147"),
-    "attn_packed_fwd": ("packed", False, "rl_selfplay_mnk_tpu/ops/pallas_attention.py:303"),
-    "attn_packed_bwd": ("packed", True, "rl_selfplay_mnk_tpu/ops/pallas_attention.py:575"),
+    "attn_folded_fwd": ("folded", False, f"{PALLAS}:54", HEAD_SOURCE, (81, 4, 14), (8192, 384)),
+    "attn_folded_bwd": ("folded", True, f"{PALLAS}:147", HEAD_SOURCE, (81, 4, 14), (8192, 384)),
+    "attn_lane_slice_fwd": ("packed", False, f"{PALLAS}:334", BOARD_SOURCE, (81, 4, 14), (8192, 384, 16)),
+    "attn_infold_fwd": ("packed", False, f"{PALLAS}:387", BOARD_SOURCE, (81, 4, 14), (8192, 384, 16)),
+    "attn_infold_bwd": ("packed", True, f"{PALLAS}:427", BOARD_SOURCE, (81, 4, 14), (8192, 384, 16)),
+    "attn_packed_fwd": ("packed", False, f"{PALLAS}:303", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
+    "attn_packed_bwd": ("packed", True, f"{PALLAS}:575", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
 }
+# (B, L, H, Dh) at which every route through an attention kernel is timed:
+# the update minibatch, then the rollout batch of 384 at the registry's four
+# Dh < 32 shapes (9x9 or 13x13, four heads of 14 or eight of 12), a
+# tournament half-pairing of 16 at the smallest and the largest of them, and
+# the 13x13 minibatch with two heads of 64.
+THRESHOLD_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (16, 81, 4, 14), (384, 81, 8, 12),
+                    (384, 169, 4, 14), (2048, 169, 8, 12), (384, 169, 8, 12), (16, 169, 8, 12),
+                    (4096, 169, 2, 64))
 # Eval forward against plain f32: the larger of these and twice the bf16
 # control's own error. A move probability is ~1/81 = 0.012, a value in [-1, 1].
 EVAL_TOL = {"p": 1e-3, "v": 1.5e-2}
@@ -262,15 +305,19 @@ def attn_inputs(torch, dev, dtype, b, l, h, dh, packed, n=4, seed=0):
     return [torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(n)]
 
 
-def attn_functions(pair):
-    """(forward wrapper, backward wrapper, forward plain, backward plain)."""
+def attn_kernel(name):
+    """(launch wrapper, plain version) of one attention kernel."""
     from rl_selfplay_mnk_tpu_torch.ops import attention as attn
 
-    if pair == "packed":
-        return (attn.attention_packed_fwd, attn.attention_packed_bwd,
-                attn.attention_packed_reference, attn.attention_packed_bwd_reference)
-    return (attn.attention_folded_fwd, attn.attention_folded_bwd,
-            attn.attention_folded_reference, attn.attention_folded_bwd_reference)
+    return {
+        "attn_folded_fwd": (attn.attention_folded_fwd, attn.attention_folded_reference),
+        "attn_folded_bwd": (attn.attention_folded_bwd, attn.attention_folded_bwd_reference),
+        "attn_packed_fwd": (attn.attention_packed_fwd, attn.attention_packed_reference),
+        "attn_packed_bwd": (attn.attention_packed_bwd, attn.attention_packed_bwd_reference),
+        "attn_lane_slice_fwd": (attn.attention_lane_slice_fwd, attn.attention_lane_slice_reference),
+        "attn_infold_fwd": (attn.attention_infold_fwd, attn.attention_infold_reference),
+        "attn_infold_bwd": (attn.attention_infold_bwd, attn.attention_infold_bwd_reference),
+    }[name]
 
 
 def attn_excess(torch, got, want):
@@ -291,40 +338,49 @@ def attn_excess(torch, got, want):
 
 
 def phase_attention(torch, dev):
-    """K3, K4, K8, K9 against their plain versions; returns the max abs
-    error per (kernel, dtype, shape)."""
+    """K3-K9 against their plain versions; returns the max abs error per
+    (kernel, dtype, shape)."""
     errors = {}
     worst = {"float32": 0.0, "bfloat16": 0.0, "differ": 0.0}
-    for pair, shapes in (("folded", ATTN_FOLDED_SHAPES), ("packed", ATTN_PACKED_SHAPES)):
-        fwd, bwd, fwd_ref, bwd_ref = attn_functions(pair)
+    groups = (
+        ("folded", ("attn_folded_fwd",), "attn_folded_bwd", ATTN_FOLDED_SHAPES),
+        ("packed", ("attn_packed_fwd",), "attn_packed_bwd", ATTN_PACKED_SHAPES),
+        ("board", ("attn_lane_slice_fwd", "attn_infold_fwd"), "attn_infold_bwd", ATTN_BOARD_SHAPES),
+    )
+    for group, forwards, backward, shapes in groups:
         for dtype in (torch.bfloat16, torch.float32):
             name = dtype_name(dtype)
             for b, l, h, dh in shapes:
-                q, k, v, do = attn_inputs(torch, dev, dtype, b, l, h, dh, pair == "packed")
-                extra = (h, dh) if pair == "packed" else ()
-                got = {"o": fwd(q, k, v, *extra)}
+                q, k, v, do = attn_inputs(torch, dev, dtype, b, l, h, dh, group != "folded")
+                extra = () if group == "folded" else (h, dh)
+                got, want = {}, {}
+                for kernel in forwards:
+                    fwd, fwd_ref = attn_kernel(kernel)
+                    got[kernel] = {"o": fwd(q, k, v, *extra)}
+                    torch.cuda.synchronize()
+                    want[kernel] = {"o": fwd_ref(q, k, v, *extra)}
+                bwd, bwd_ref = attn_kernel(backward)
+                got[backward] = dict(zip(("dq", "dk", "dv"), bwd(q, k, v, do, *extra)))
                 torch.cuda.synchronize()
-                got.update(zip(("dq", "dk", "dv"), bwd(q, k, v, do, *extra)))
-                torch.cuda.synchronize()
-                want = {"o": fwd_ref(q, k, v, *extra)}
-                want.update(zip(("dq", "dk", "dv"), bwd_ref(q, k, v, do, *extra)))
-                errs, shares = {}, {}
-                for key in got:
-                    errs[key], of_limit, differ = attn_excess(torch, got[key], want[key])
-                    shares[key] = max(of_limit, differ)
-                    worst[name] = max(worst[name], of_limit)
-                    worst["differ"] = max(worst["differ"], differ)
-                    if not shares[key] <= 1.0:
-                        raise AssertionError(
-                            f"attention {pair} {name} (B, L, H, Dh)={(b, l, h, dh)}: {key} outside its "
-                            f"tolerance: max abs err {errs[key]:.3e}, worst error {of_limit:.2f} of its "
-                            f"limit, differing elements {differ:.2f} of theirs")
-                print(f"attention {pair} {name} (B, L, H, Dh)={(b, l, h, dh)}: max_abs_err "
-                      + ", ".join(f"{key} {e:.3e}" for key, e in errs.items())
-                      + f"; worst share of the limit {max(shares.values()):.2f} ok")
-                errors[(f"attn_{pair}_fwd", name, (b, l, h, dh))] = errs["o"]
-                errors[(f"attn_{pair}_bwd", name, (b, l, h, dh))] = max(
-                    errs["dq"], errs["dk"], errs["dv"])
+                want[backward] = dict(zip(("dq", "dk", "dv"), bwd_ref(q, k, v, do, *extra)))
+                report = []
+                for kernel in got:
+                    errs, share = [], 0.0
+                    for key in got[kernel]:
+                        err, of_limit, differ = attn_excess(torch, got[kernel][key], want[kernel][key])
+                        errs.append(err)
+                        share = max(share, of_limit, differ)
+                        worst[name] = max(worst[name], of_limit)
+                        worst["differ"] = max(worst["differ"], differ)
+                        if not max(of_limit, differ) <= 1.0:
+                            raise AssertionError(
+                                f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: {key} outside its "
+                                f"tolerance: max abs err {err:.3e}, worst error {of_limit:.2f} of its "
+                                f"limit, differing elements {differ:.2f} of theirs")
+                    errors[(kernel, name, (b, l, h, dh))] = max(errs)
+                    report.append(f"{kernel} {max(errs):.3e} ({share:.2f} of the limit)")
+                print(f"attention {name} (B, L, H, Dh)={(b, l, h, dh)}: max_abs_err "
+                      + ", ".join(report) + " ok")
     print(f"attention: worst error as a share of its limit: f32 {worst['float32']:.2f} "
           f"(limit {ATTN_F32_TOL:.0e} * (1 + |ref|)), bf16 {worst['bfloat16']:.2f} "
           f"(limit 2^-7 * |ref| + 2^-10 * max|ref|); bf16 elements that differ: "
@@ -332,15 +388,16 @@ def phase_attention(torch, dev):
     return errors
 
 
-def phase_train(torch, dev, label, config, iterations, launched, not_launched=()):
+def phase_train(torch, dev, label, config, iterations, launched, not_launched=(), validations=1):
     """``iterations`` of ``train_mnk`` with ``config``: every kernel's launch
     count set to 0 just before and read just after. Kernels in ``launched``
-    must have run, those in ``not_launched`` must not."""
+    must have run, those in ``not_launched`` must not. Returns (launches,
+    trained model, directory of the exports)."""
     from rl_selfplay_mnk_tpu_torch.train import train_mnk
     from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
 
     config["total_environment_steps"] = iterations * config["num_envs"] * config["n_steps"]
-    config["run_name"] = f"chip_smoke_{label}"
+    config["run_name"] = "chip_smoke_" + label.replace(" ", "_")
     reset_launches()
     t0 = time.perf_counter()
     summary = train_mnk(config, device=str(dev))
@@ -359,12 +416,14 @@ def phase_train(torch, dev, label, config, iterations, launched, not_launched=()
                 raise AssertionError(f"{label} iteration {i}: {key} = {m[key]}")
         print(f"{label} iter {i}: fps {m['fps']:.1f} rollout_time {m['rollout_time']:.3f}s "
               f"learn_time {m['learn_time']:.3f}s explained_var {m['explained_variance']:.3f}")
-    if len(summary["validations"]) != 1:
-        raise AssertionError(f"{label}: expected one validation, got {len(summary['validations'])}")
+    if len(summary["validations"]) != validations:
+        raise AssertionError(
+            f"{label}: expected {validations} validations, got {len(summary['validations'])}")
     keys = {"win_rate", "loss_rate", "draw_rate", "score_rate", "games_played"}
-    if set(summary["validations"][0]) != {f"validation/vs_benchmark/{k}" for k in keys}:
-        raise AssertionError(f"{label}: validation keys: {sorted(summary['validations'][0])}")
-    print(f"{label} validation: {json.dumps(summary['validations'][0])}")
+    for validation in summary["validations"]:
+        if set(validation) != {f"validation/vs_benchmark/{k}" for k in keys}:
+            raise AssertionError(f"{label}: validation keys: {sorted(validation)}")
+        print(f"{label} validation: {json.dumps(validation)}")
     print(f"{label}: {iterations} iterations in {wall:.1f}s, launches {json.dumps(launches)}")
     for name in launched:
         if launches[name] <= 0:
@@ -372,7 +431,82 @@ def phase_train(torch, dev, label, config, iterations, launched, not_launched=()
     for name in not_launched:
         if launches[name] != 0:
             raise AssertionError(f"{label}: kernel {name} was launched {launches[name]} times")
-    return launches, summary["model"]
+    return launches, summary["model"], summary["export_dir"]
+
+
+def read_csv(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_tournament(torch, label, paths, board, out_dir, launched, first, last, least_wins,
+                     rising=()):
+    """A round robin through ``compare_models.main`` on the card, 32 games a
+    pairing, the launch counts set to 0 just before and read just after.
+    Every pairing's games add up; the export ``last`` takes at least
+    ``least_wins`` games from ``first``; ELO rises along ``rising``."""
+    from rl_selfplay_mnk_tpu_torch import compare_models
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    games = 32
+    reset_launches()
+    t0 = time.perf_counter()
+    saved = compare_models.main([*paths, "--games", str(games), "--board", *map(str, board),
+                                 "--output", out_dir, "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    matches = read_csv(f"{saved}/match_results.csv")
+    ratings = {row["unique_id"]: float(row["rating"]) for row in read_csv(f"{saved}/elo_ratings.csv")}
+    players = len(ratings)
+    if len(matches) != players * (players - 1) // 2:
+        raise AssertionError(f"{label}: {len(matches)} pairings for {players} models")
+    for row in matches:
+        total = int(row["player1_wins"]) + int(row["player2_wins"]) + int(row["draws"])
+        if total != games or int(row["total_games"]) != games:
+            raise AssertionError(f"{label}: {row['player1_unique_id']} vs "
+                                 f"{row['player2_unique_id']} played {total} of {games} games")
+    for name in launched:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched by the tournament")
+    wins = None
+    for row in matches:
+        if (row["player1_unique_id"], row["player2_unique_id"]) == (first, last):
+            wins = int(row["player2_wins"])
+        elif (row["player1_unique_id"], row["player2_unique_id"]) == (last, first):
+            wins = int(row["player1_wins"])
+    if wins is None or wins < least_wins:
+        raise AssertionError(f"{label}: {last} took {wins} of {games} from {first}, "
+                             f"expected at least {least_wins}")
+    for lower, higher in zip(rising, rising[1:]):
+        if not ratings[lower] < ratings[higher]:
+            raise AssertionError(f"{label}: ELO {lower} {ratings[lower]} is not below "
+                                 f"{higher} {ratings[higher]}")
+    print(f"{label}: {players} models, {len(matches)} pairings of {games} games in {wall:.1f}s; "
+          f"{last} took {wins} of {games} from {first}; ELO "
+          + ", ".join(f"{key} {ratings[key]:.2f}" for key in (rising or (first, last)))
+          + f"; launches {json.dumps(launches)}")
+    return launches
+
+
+def phase_play(torch, model_dir):
+    """One game through ``play.main`` on the card: the directory's latest
+    export (Black) against the random policy; the export wins."""
+    import contextlib
+    import io
+
+    from rl_selfplay_mnk_tpu_torch import play
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        history, winner = play.main(["--p1", model_dir, "--p2", "random", "--seed", "3"])
+    torch.cuda.synchronize()
+    last = [line for line in out.getvalue().splitlines() if line.strip()][-1]
+    print(f"play: {len(history)} moves; {last}")
+    if winner != 0:
+        raise AssertionError(f"play: the trained model did not win (winner {winner})")
 
 
 def real_positions(torch, np, dev, mnk, envs, moves, seed):
@@ -441,7 +575,7 @@ def phase_transformer_eval_check(torch, np, dev, model, mnk):
     kernels against its f32 forward with the plain attention."""
     import copy
 
-    from rl_selfplay_mnk_tpu_torch.models import snapshot, transformer
+    from rl_selfplay_mnk_tpu_torch.models import snapshot
     from rl_selfplay_mnk_tpu_torch.models.registry import eval_apply
     from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
 
@@ -450,12 +584,9 @@ def phase_transformer_eval_check(torch, np, dev, model, mnk):
     def plain_forward(dtype):
         twin = copy.deepcopy(model)
         twin.dtype = dtype
-        kernel_attention = transformer.tiny_head_attention
-        transformer.tiny_head_attention = plain_tiny_head_attention
-        try:
-            return eval_apply(twin, obs)
-        finally:
-            transformer.tiny_head_attention = kernel_attention
+        for layer in twin.layers:
+            layer.attn.attention_fn = plain_tiny_head_attention
+        return eval_apply(twin, obs)
 
     def kernel_forward():
         reset_launches()
@@ -474,23 +605,20 @@ def sdpa_layout(torch, t, b, l, h, dh, packed):
     return t.reshape(b, h, dh, l).permute(0, 1, 3, 2).contiguous()
 
 
-def time_attention(torch, dev, pair, backward, b, l, h, dh):
+def time_attention(torch, dev, name, b, l, h, dh):
     """One attention kernel at one shape, bf16: its device and per-call time,
     its plain version's, the library yardstick's, and the bound."""
     import torch.nn.functional as F
 
-    packed = pair == "packed"
-    fwd, bwd, fwd_ref, bwd_ref = attn_functions(pair)
+    layout, backward = ATTN_KERNELS[name][:2]
+    packed = layout == "packed"
+    kernel, plain_version = attn_kernel(name)
     q, k, v, do = attn_inputs(torch, dev, torch.bfloat16, b, l, h, dh, packed, seed=5)
+    args = (q, k, v, do) if backward else (q, k, v)
     extra = (h, dh) if packed else ()
-    match = f"attn_{pair}_{'bwd' if backward else 'fwd'}"
     plain_iters = 10 if b > 1024 else 30
-    if backward:
-        ms, call = timed(lambda: bwd(q, k, v, do, *extra), match, 50)
-        plain, plain_call = timed(lambda: bwd_ref(q, k, v, do, *extra), iters=plain_iters, warmup=3)
-    else:
-        ms, call = timed(lambda: fwd(q, k, v, *extra), match, 50)
-        plain, plain_call = timed(lambda: fwd_ref(q, k, v, *extra), iters=plain_iters, warmup=3)
+    ms, call = timed(lambda: kernel(*args, *extra), name, 50)
+    plain, plain_call = timed(lambda: plain_version(*args, *extra), iters=plain_iters, warmup=3)
 
     lq, lk, lv, ldo = (sdpa_layout(torch, t, b, l, h, dh, packed) for t in (q, k, v, do))
     if backward:  # the library has no backward of its own to call: forward plus backward
@@ -515,78 +643,106 @@ def time_attention(torch, dev, pair, backward, b, l, h, dh):
 
 
 def attention_kernel_records(torch, dev, launches, attn_errors):
-    """The four attention kernels' entries of the ``kernels`` line: timed at
-    the update minibatch (the entry's own numbers) and at the rollout batch."""
+    """The seven attention kernels' entries of the ``kernels`` line: timed at
+    the update minibatch (the entry's own numbers), at the rollout batch and,
+    for the one-block-per-board kernels, at a tournament half-pairing.
+    ``launches`` maps a kernel to (count, the path that counted it)."""
     records = []
-    for name, (pair, backward, replaces) in ATTN_KERNELS.items():
-        (update_b, rollout_b), (l, h, dh) = ATTN_PATH_SHAPES[pair]
-        at_update = time_attention(torch, dev, pair, backward, update_b, l, h, dh)
-        at_rollout = time_attention(torch, dev, pair, backward, rollout_b, l, h, dh)
+    for name, (_, backward, replaces, source, (l, h, dh), batches) in ATTN_KERNELS.items():
+        at = [time_attention(torch, dev, name, b, l, h, dh) for b in batches]
         record = {
             "name": name,
             "route": "cuda",
-            "source": "rl_selfplay_mnk_tpu_torch/csrc/attention.cu",
+            "source": source,
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": attn_errors[(name, "bfloat16", (update_b, l, h, dh))],
+            "launches": launches[name][0],
+            "launches_on": launches[name][1],
+            "max_abs_err": attn_errors[(name, "bfloat16", (batches[0], l, h, dh))],
         }
-        record.update({key: value for key, value in at_update.items() if key != "shape"})
+        record.update({key: value for key, value in at[0].items() if key != "shape"})
         record["library"] = ("scaled_dot_product_attention forward + backward" if backward
                              else "scaled_dot_product_attention")
-        record["shape"] = at_update["shape"]
-        record["at_rollout_batch"] = at_rollout
+        record["shape"] = at[0]["shape"]
+        record["at_rollout_batch"] = at[1]
+        if len(at) > 2:
+            record["at_tournament_batch"] = at[2]
         records.append(record)
     return records
 
 
 def phase_threshold(torch, dev):
-    """Both attention pairs at one shape of either kind, from and to the
-    models' (B, L, H, Dh) layout, transposes included: per-call time between
-    CUDA events of the forward (no graph) and of forward plus backward."""
+    """The four ways from the models' (B, L, H, Dh) layout through an
+    attention kernel and back, the result made contiguous as the output
+    projection needs it, layout operations included: the two routes that
+    ``tiny_head_attention`` lets a caller force, and the packed pair and the
+    lane-slice kernel called as its dispatch calls them. Per-call time between
+    CUDA events of the forward under ``no_grad`` and of forward plus backward
+    (none for the lane-slice kernel, which has no backward)."""
     from rl_selfplay_mnk_tpu_torch.ops import attention as attn
 
-    def folded_route(q, k, v):
-        b, l, h, dh = q.shape
+    def on_packed(kernel):
+        def route(q, k, v):
+            b, l, h, dh = q.shape
+            out = kernel(*(t.reshape(b, l, h * dh) for t in (q, k, v)), h, dh)
+            return out.reshape(b, l, h, dh)
+        return route
 
-        def fold(t):
-            return t.permute(0, 2, 3, 1).reshape(b * h, dh, l).contiguous()
-
-        out = attn.attention_folded(fold(q), fold(k), fold(v))
-        return out.reshape(b, h, dh, l).permute(0, 3, 1, 2).contiguous()
-
-    def packed_route(q, k, v):
-        b, l, h, dh = q.shape
-        d = h * dh
-        out = attn.attention_packed(q.reshape(b, l, d), k.reshape(b, l, d), v.reshape(b, l, d), h, dh)
-        return out.reshape(b, l, h, dh)
-
+    routes = {
+        "folded": lambda q, k, v: attn.tiny_head_attention(q, k, v, route="folded"),
+        "infold": lambda q, k, v: attn.tiny_head_attention(q, k, v, route="infold"),
+        "packed": on_packed(attn.attention_packed),
+        "lane_slice": on_packed(attn.attention_lane_slice_fwd),
+    }
     results = []
-    for kind in ("folded", "packed"):
-        (b, _), (l, h, dh) = ATTN_PATH_SHAPES[kind]
+    for b, l, h, dh in THRESHOLD_SHAPES:
         g = torch.Generator(device=dev).manual_seed(9)
         q, k, v, do = (torch.randn((b, l, h, dh), device=dev, generator=g).to(torch.bfloat16)
                        for _ in range(4))
-        row = {"shape": [b, l, h, dh], "dispatch_takes": kind}
-        for route_name, route in (("folded", folded_route), ("packed", packed_route)):
+        with torch.no_grad():
+            taken_without = tiny_head_attention_route(torch, q, k, v)
+        row = {"shape": [b, l, h, dh], "dispatch_takes_without_gradient": taken_without}
+        for name, route in routes.items():
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
 
             def forward():
                 with torch.no_grad():
-                    return route(q, k, v)
+                    return route(q, k, v).contiguous()
 
             def forward_backward():
-                return torch.autograd.grad(route(*leaves), leaves, do)
+                out = route(*leaves).contiguous()
+                return torch.autograd.grad(out, leaves, do)
 
-            row[f"{route_name}_fwd_call_ms"] = time_ms(forward, iters=30, warmup=3)
-            row[f"{route_name}_fwd_bwd_call_ms"] = time_ms(forward_backward, iters=30, warmup=3)
+            iters = 30 if b > 1024 else 100
+            row[f"{name}_fwd_call_ms"] = time_ms(forward, iters=iters, warmup=3)
+            row[f"{name}_fwd_bwd_call_ms"] = (
+                None if name == "lane_slice" else time_ms(forward_backward, iters=iters, warmup=3))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        row["dispatch_takes_with_gradient"] = tiny_head_attention_route(torch, *leaves)
         results.append(row)
-        print(f"threshold (B, L, H, Dh)={tuple(row['shape'])} (dispatch takes {kind}): "
+        print(f"threshold (B, L, H, Dh)={tuple(row['shape'])} (dispatch takes "
+              f"{row['dispatch_takes_without_gradient']} without a gradient, "
+              f"{row['dispatch_takes_with_gradient']} with one): "
               + ", ".join(f"{key} {value:.4f}" for key, value in row.items()
-                          if key.endswith("_ms")))
+                          if key.endswith("_ms") and value is not None))
     return results
 
 
-def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_launches, attn_errors):
+def tiny_head_attention_route(torch, q, k, v):
+    """The route ``tiny_head_attention`` takes for these tensors by itself:
+    the one whose forward wrapper counts a launch."""
+    from rl_selfplay_mnk_tpu_torch.ops import attention as attn
+
+    forwards = {"folded": attn.attention_folded_fwd, "packed": attn.attention_packed_fwd,
+                "infold": attn.attention_infold_fwd, "lane_slice": attn.attention_lane_slice_fwd}
+    before = {route: fn.launches for route, fn in forwards.items()}
+    attn.tiny_head_attention(q, k, v)
+    taken = [route for route, fn in forwards.items() if fn.launches != before[route]]
+    if len(taken) != 1:
+        raise AssertionError(f"tiny_head_attention launched {taken}")
+    return taken[0]
+
+
+def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
     import torch.nn.functional as F
 
     from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
@@ -642,7 +798,8 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_launches, 
             "route": "cuda",
             "source": "rl_selfplay_mnk_tpu_torch/csrc/env_step.cu",
             "replaces": "rl_selfplay_mnk_tpu/ops/pallas_env.py:28",
-            "launches": launches["env_step"],
+            "launches": launches["env_step"][0],
+            "launches_on": launches["env_step"][1],
             "max_abs_err": k1_error,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -658,7 +815,8 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_launches, 
             "route": "cuda",
             "source": "rl_selfplay_mnk_tpu_torch/csrc/resblock.cu",
             "replaces": "rl_selfplay_mnk_tpu/ops/pallas_resnet.py:67",
-            "launches": launches["resblock"],
+            "launches": launches["resblock"][0],
+            "launches_on": launches["resblock"][1],
             "max_abs_err": k2_errors[("bfloat16", 384, 32)],
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -670,17 +828,18 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_launches, 
             "library_call_ms": k2_lib_call,
         },
     ]
-    kernels += attention_kernel_records(torch, dev, attn_launches, attn_errors)
+    kernels += attention_kernel_records(torch, dev, launches, attn_errors)
     for k in kernels:
         print(f"timing {k['name']}: device {k['ms']:.5f} ms, per call {k['call_ms']:.5f} ms; "
               f"plain device {k['plain_ms']:.5f} ms, per call {k['plain_call_ms']:.5f} ms; "
               f"library {k['library_ms']} / {k['library_call_ms']} ms; "
               f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}")
-        r = k.get("at_rollout_batch")
-        if r:
-            print(f"  at (B, L, H, Dh)={tuple(r['shape'])}: device {r['ms']:.5f} ms, per call "
-                  f"{r['call_ms']:.5f} ms; plain device {r['plain_ms']:.5f} ms; library "
-                  f"{r['library_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+        for key in ("at_rollout_batch", "at_tournament_batch"):
+            r = k.get(key)
+            if r:
+                print(f"  at (B, L, H, Dh)={tuple(r['shape'])}: device {r['ms']:.5f} ms, per call "
+                      f"{r['call_ms']:.5f} ms; plain device {r['plain_ms']:.5f} ms; library "
+                      f"{r['library_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
     return kernels
 
 
@@ -715,28 +874,88 @@ def main() -> int:
     k2_errors = phase_k2(torch, dev)
     attn_errors = phase_attention(torch, dev)
 
-    folded = ("attn_folded_fwd", "attn_folded_bwd")
-    packed = ("attn_packed_fwd", "attn_packed_bwd")
-    config = build_config()
-    config["validation_interval"] = 2
-    resnet_launches, model = phase_train(
-        torch, dev, "resnet_b_s 9x9x5", config, 3, ("env_step", "resblock"), folded + packed)
-    phase_eval_check(torch, np, dev, model)
-    launches_a, _ = phase_train(
-        torch, dev, "transformer_b_s 9x9x5", build_config("transformer_b_s"), 6,
-        ("env_step",) + folded, packed + ("resblock",))
-    config = build_config("transformer_b_s_w", (13, 13, 5), 4096)
-    config["validation_interval"] = 2
-    launches_b, model = phase_train(
-        torch, dev, "transformer_b_s_w 13x13x5", config, 3,
-        ("env_step",) + packed, folded + ("resblock",))
-    phase_transformer_eval_check(torch, np, dev, model, (13, 13, 5))
+    import functools
+    import tempfile
 
-    attn_launches = {name: (launches_a if name in folded else launches_b)[name]
-                     for name in folded + packed}
+    from rl_selfplay_mnk_tpu_torch.models import registry
+    from rl_selfplay_mnk_tpu_torch.ops.attention import GRADIENT_ROUTE, tiny_head_attention
+
+    folded = ("attn_folded_fwd", "attn_folded_bwd")
+    infold = ("attn_infold_fwd", "attn_infold_bwd")
+    packed = ("attn_packed_fwd", "attn_packed_bwd")
+    gradient_pairs = {"folded": folded, "infold": infold}
+    default_pair = gradient_pairs[GRADIENT_ROUTE]
+    other_route = "infold" if GRADIENT_ROUTE == "folded" else "folded"
+    other_pair = gradient_pairs[other_route]
+    paths = {}  # label -> launch counts of that path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        config = build_config()
+        config.update(validation_interval=2, export_dir=f"{tmp}/models")
+        label = "resnet_b_s 9x9x5"
+        paths[label], model, _ = phase_train(
+            torch, dev, label, config, 3, ("env_step", "resblock"),
+            folded + infold + packed + ("attn_lane_slice_fwd",))
+        phase_eval_check(torch, np, dev, model)
+
+        # Path A: rollouts, opponents and validations record no gradient (K5),
+        # the update does (the default pair).
+        config = build_config("transformer_b_s")
+        config.update(validation_interval=1, export_dir=f"{tmp}/models")
+        label_a = "transformer_b_s 9x9x5"
+        paths[label_a], _, exports_a = phase_train(
+            torch, dev, label_a, config, 4, ("env_step", "attn_lane_slice_fwd") + default_pair,
+            packed + other_pair + ("resblock",), validations=3)
+
+        config = build_config("transformer_b_s_w", (13, 13, 5), 4096)
+        config.update(validation_interval=2, export_dir=f"{tmp}/models")
+        label_b = "transformer_b_s_w 13x13x5"
+        paths[label_b], model, _ = phase_train(
+            torch, dev, label_b, config, 3, ("env_step",) + packed,
+            folded + infold + ("resblock", "attn_lane_slice_fwd"))
+        phase_transformer_eval_check(torch, np, dev, model, (13, 13, 5))
+
+        # Path C: the gated family with every attention forced to the other
+        # with-gradient route, forwards without a gradient included.
+        config = build_config("transformer_c_s")
+        config.update(validation_interval=1, export_dir=f"{tmp}/models")
+        label_c = f"transformer_c_s 9x9x5 route={other_route}"
+        factory = registry.ARCHITECTURE_REGISTRY["transformer_c_s"]
+        registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = functools.partial(
+            factory, attention_fn=functools.partial(tiny_head_attention, route=other_route))
+        try:
+            paths[label_c], _, _ = phase_train(
+                torch, dev, label_c, config, 2, ("env_step",) + other_pair,
+                packed + default_pair + ("resblock", "attn_lane_slice_fwd"))
+        finally:
+            registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = factory
+
+        # The serving path.
+        label_9 = "tournament 9x9x5"
+        paths[label_9] = phase_tournament(
+            torch, label_9, ["models/tpu_smoke30", exports_a], (9, 9, 5), f"{tmp}/results",
+            ("env_step", "resblock", "attn_lane_slice_fwd"),
+            "tpu_smoke30/model_00005", "tpu_smoke30/model_00030", 24,
+            rising=("tpu_smoke30/model_00005", "tpu_smoke30/model_00015", "tpu_smoke30/model_00030"))
+        full13 = "evidence/exports_full13_transformer_b_s_w"
+        label_13 = "tournament 13x13x5"
+        paths[label_13] = phase_tournament(
+            torch, label_13, [f"{full13}/model_{i:05d}.msgpack" for i in (5, 1345, 2690, 4365)],
+            (13, 13, 5), f"{tmp}/results", ("env_step", "attn_packed_fwd"),
+            "full13_transformer_b_s_w/model_00005", "full13_transformer_b_s_w/model_04365", 28)
+        phase_play(torch, "models/tpu_smoke30")
+
+    # Each kernel's launches: the count of the first of these paths that ran it.
+    launches = {}
+    for name in paths[label]:
+        for path in (label_9, label_13, label_a, label_b, label_c, label):
+            if paths[path][name] > 0:
+                launches[name] = (paths[path][name], path)
+                break
+        else:
+            raise AssertionError(f"kernel {name} was launched on none of the paths")
     threshold = phase_threshold(torch, dev)
-    kernels = phase_timings(torch, np, dev, resnet_launches, k1_error, k2_errors,
-                            attn_launches, attn_errors)
+    kernels = phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors)
 
     print(json.dumps({"threshold": threshold}))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,7 @@
+from .cnn import CnnActorCritic
 from .convert import flax_to_state_dict, state_dict_to_flax
 from .fold_bn import fold_batchnorm, snapshot
+from .mlp import MlpActorCritic
 from .registry import (
     ARCHITECTURE_REGISTRY,
     create_model_from_architecture,
@@ -13,6 +15,8 @@ from .transformer import TransformerActorCritic
 
 __all__ = [
     "ARCHITECTURE_REGISTRY",
+    "CnnActorCritic",
+    "MlpActorCritic",
     "ResNetActorCritic",
     "SGRTransformerActorCritic",
     "TransformerActorCritic",

@@ -39,7 +39,14 @@ def conv3x3(x: torch.Tensor, layer: nn.Conv2d, dtype) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with f32 statistics, output in x's dtype (flax semantics)."""
-    y = F.layer_norm(x.to(torch.float32), layer.normalized_shape, layer.weight, layer.bias, layer.eps)
+    xf = x.to(torch.float32)
+    if layer.normalized_shape == (1,):
+        # A norm over one element (mlp_tiny's value head) is exactly its bias.
+        # F.layer_norm leaves a rounding of x - mean there, which 1/sqrt(eps)
+        # = 1000 carries into the gradients.
+        y = (xf - xf) * layer.weight + layer.bias
+    else:
+        y = F.layer_norm(xf, layer.normalized_shape, layer.weight, layer.bias, layer.eps)
     return y.to(x.dtype)
 
 

@@ -1,5 +1,5 @@
 """Convert between the JAX package's variables and the port's state_dict, for
-the ResNet and the transformer (plain and SGR) trees.
+the CNN, ResNet, transformer (plain and SGR) and MLP trees.
 
 The JAX side is a nested dict of numpy arrays,
 ``{"params": ..., "batch_stats": ...}``, as flax keeps it (no msgpack
@@ -15,7 +15,9 @@ merged by a reshape first and the matrix transposed after, in that order
 (and the other way round on the way back, which needs the head count). The
 positional embedding is a bare parameter, and a transformer's
 ``batch_stats`` is empty. Which tree it is shows in its keys: ``cell_embed``
-marks a transformer, ``SGRBlock_*`` scopes the SGR one.
+marks a transformer (``SGRBlock_*`` scopes the SGR one), ``ResidualBlock_*``
+a ResNet, a top-level ``Dense_0`` the MLP, and ``Conv_*`` alone the CNN. The
+MLP flattens the observation as (plane, m, n) on both sides.
 """
 
 from __future__ import annotations
@@ -60,6 +62,18 @@ def _resnet_layers(num_blocks: int) -> Iterator[Tuple[tuple, str, str]]:
         yield (scope, "BatchNorm_0"), f"blocks.{i}.bn1", "bn"
         yield (scope, "Conv_1"), f"blocks.{i}.conv2", "conv"
         yield (scope, "BatchNorm_1"), f"blocks.{i}.bn2", "bn"
+    yield from _head_layers()
+
+
+def _cnn_layers(num_convs: int) -> Iterator[Tuple[tuple, str, str]]:
+    for i in range(num_convs):
+        yield (f"Conv_{i}",), f"convs.{i}", "conv"
+        yield (f"BatchNorm_{i}",), f"bns.{i}", "bn"
+    yield from _head_layers()
+
+
+def _mlp_layers() -> Iterator[Tuple[tuple, str, str]]:
+    yield ("Dense_0",), "dense", "dense"
     yield from _head_layers()
 
 
@@ -133,7 +147,7 @@ def _count(keys, prefix: str) -> int:
 
 
 def flax_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
-    """JAX variables (ResNet or transformer tree) -> the port's state_dict."""
+    """JAX variables (any registry tree) -> the port's state_dict."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
@@ -143,8 +157,12 @@ def flax_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         first = params.get("SGRBlock_0" if gated else "EncoderLayer_0", {})
         layers = _transformer_layers(num_layers, gated, "Dense_0" in first)
         out["embed.pos_embed"] = _to_torch(params["pos_embed"], "pos_embed", "param")
-    else:
+    elif _count(params, "ResidualBlock_"):
         layers = _resnet_layers(_count(params, "ResidualBlock_"))
+    elif "Dense_0" in params:
+        layers = _mlp_layers()
+    else:
+        layers = _cnn_layers(_count(params, "Conv_"))
     for path, module_path, kind in layers:
         layer = _get(params, path)
         for flax_leaf, torch_leaf in _LEAVES[kind]:
@@ -161,7 +179,7 @@ def _indices(state_dict, pattern: str) -> set:
 
 
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None) -> dict:
-    """The port's state_dict (ResNet or transformer) -> JAX variables. A
+    """The port's state_dict (any registry model) -> JAX variables. A
     transformer needs ``num_heads`` (the model's ``num_heads``): the merged
     projection weights do not tell how many heads they hold."""
     params: dict = {}
@@ -175,8 +193,12 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[
             has_ffn="layers.0.dense1.weight" in state_dict,
         )
         params["pos_embed"] = _to_flax(state_dict["embed.pos_embed"], "pos_embed", "param")
-    else:
+    elif "conv_in.weight" in state_dict:
         layers = _resnet_layers(len(_indices(state_dict, r"blocks\.(\d+)\.")))
+    elif "dense.weight" in state_dict:
+        layers = _mlp_layers()
+    else:
+        layers = _cnn_layers(len(_indices(state_dict, r"convs\.(\d+)\.")))
     for path, module_path, kind in layers:
         for flax_leaf, torch_leaf in _LEAVES[kind]:
             value = state_dict[f"{module_path}.{torch_leaf}"]

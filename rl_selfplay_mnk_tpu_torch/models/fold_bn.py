@@ -7,15 +7,16 @@ the conv:
     W' = W * gamma / sqrt(var + eps)        (per output channel)
     b' = (b - mu) * gamma / sqrt(var + eps) + beta
 
-``fold_batchnorm`` returns a folded copy: the convs carry the fold, the BN
-layers become the identity (gamma=1, beta=0, mu=0, var=1-eps), the copy is
-marked ``folded`` and frozen, and each residual block gets its weights in
-the residual-block kernel's layout (im2col (9C, C) in the compute dtype,
-f32 biases). The source model is left as it is.
+``fold_batchnorm`` returns a folded copy of a ResNet or a CNN: the convs
+carry the fold, the BN layers become the identity (gamma=1, beta=0, mu=0,
+var=1-eps), the copy is marked ``folded`` and frozen, and each residual
+block of a ResNet gets its weights in the residual-block kernel's layout
+(im2col (9C, C) in the compute dtype, f32 biases). The source model is left
+as it is.
 
 ``snapshot`` is what the trainer takes of the learner for an opponent, a
 pool entry or the benchmark: the folded copy for a model with BatchNorm, a
-frozen deep copy for one without (the transformer families).
+frozen deep copy for one without (the transformer families, ``mlp_tiny``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def fold_batchnorm(model):
         bn.running_mean.zero_()
         bn.running_var.fill_(1.0 - bn.eps)
     dt = folded.dtype
-    for blk in folded.blocks:
+    for blk in getattr(folded, "blocks", ()):  # a ResNet's residual blocks
         blk.kernel_weights = (
             conv_kernel_to_im2col(blk.conv1.weight).to(dt).contiguous(),
             blk.conv1.bias.to(torch.float32).contiguous(),

@@ -1,8 +1,8 @@
 """Architecture registry (counterpart of the JAX package's ``models/registry.py``).
 
-The port holds the ResNet and the transformer families (plain and SGR). The
-JAX package's other names (the CNN and MLP families) are known here and
-raise a clear ``ValueError`` until they are ported.
+All 19 names of the JAX package: the CNN, ResNet and transformer families
+(plain and SGR), their speed tiers and ``mlp_tiny``. A factory passes extra
+keyword arguments on to its module (a transformer's ``attention_fn``).
 """
 
 from __future__ import annotations
@@ -13,35 +13,47 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from .cnn import CnnActorCritic
 from .common import RELU_GAIN, HeadMLP
+from .mlp import MlpActorCritic
 from .resnet import ResNetActorCritic
 from .sgr_transformer import SGRTransformerActorCritic
 from .transformer import TransformerActorCritic
 
 
+def _cnn(channels, hidden):
+    return lambda action_dim, obs_shape, dtype, **kwargs: CnnActorCritic(
+        action_dim, obs_shape, channels=tuple(channels), head_hidden=hidden, dtype=dtype, **kwargs
+    )
+
+
 def _resnet(channels, blocks, hidden):
-    return lambda action_dim, obs_shape, dtype: ResNetActorCritic(
+    return lambda action_dim, obs_shape, dtype, **kwargs: ResNetActorCritic(
         action_dim, obs_shape, channels=channels, num_blocks=blocks,
-        head_hidden=hidden, dtype=dtype,
+        head_hidden=hidden, dtype=dtype, **kwargs
     )
 
 
 def _tfm(d, layers, heads, hidden, ffn=None, qkv=None):
-    return lambda action_dim, obs_shape, dtype: TransformerActorCritic(
+    return lambda action_dim, obs_shape, dtype, **kwargs: TransformerActorCritic(
         action_dim, obs_shape, embed_dim=d, num_layers=layers, num_heads=heads,
-        head_hidden=hidden, dtype=dtype, ffn_dim=ffn, qkv_features=qkv,
+        head_hidden=hidden, dtype=dtype, ffn_dim=ffn, qkv_features=qkv, **kwargs
     )
 
 
 def _sgr(d, layers, heads, hidden):
-    return lambda action_dim, obs_shape, dtype: SGRTransformerActorCritic(
+    return lambda action_dim, obs_shape, dtype, **kwargs: SGRTransformerActorCritic(
         action_dim, obs_shape, embed_dim=d, num_layers=layers, num_heads=heads,
-        head_hidden=hidden, dtype=dtype,
+        head_hidden=hidden, dtype=dtype, **kwargs
     )
 
 
-# name -> factory(action_dim, obs_shape, dtype) -> nn.Module
+# name -> factory(action_dim, obs_shape, dtype, **module_kwargs) -> nn.Module
 ARCHITECTURE_REGISTRY: Dict[str, Callable] = {
+    "cnn_s": _cnn([64] * 4, 256),
+    "cnn_l": _cnn([192] * 6, 256),
+    "cnn_b_s": _cnn([56] * 4, 128),
+    "cnn_b_l": _cnn([96] * 8, 256),
     "resnet_s": _resnet(64, 4, 256),
     "resnet_l": _resnet(128, 8, 256),
     "resnet_b_s": _resnet(32, 4, 128),
@@ -56,11 +68,10 @@ ARCHITECTURE_REGISTRY: Dict[str, Callable] = {
     "transformer_c_l": _sgr(96, 5, 8, 256),
     "transformer_b_s_w": _tfm(128, 1, 2, 128, ffn=0),
     "transformer_b_l_w": _tfm(256, 1, 4, 256, ffn=512),
+    "mlp_tiny": lambda action_dim, obs_shape, dtype, **kwargs: MlpActorCritic(
+        action_dim, obs_shape, dtype=dtype, **kwargs
+    ),
 }
-
-NOT_YET_PORTED = (
-    "cnn_s", "cnn_l", "cnn_b_s", "cnn_b_l", "mlp_tiny",
-)
 
 
 def create_model_from_architecture(
@@ -68,23 +79,21 @@ def create_model_from_architecture(
     obs_shape: Tuple[int, int, int],
     action_dim: int,
     dtype=torch.float32,
+    **module_kwargs,
 ):
     """Instantiate a registered architecture.
 
     Returns ``(module, architecture_params)``; the module's parameters are
     not initialised yet (``init_network``).
     """
-    if architecture_name in NOT_YET_PORTED:
-        raise ValueError(
-            f"Architecture {architecture_name} is not ported to PyTorch yet. "
-            "Ported: " + ", ".join(sorted(ARCHITECTURE_REGISTRY))
-        )
     if architecture_name not in ARCHITECTURE_REGISTRY:
         raise ValueError(
             f"Unknown architecture: {architecture_name}. Known architectures: "
             + ", ".join(sorted(ARCHITECTURE_REGISTRY))
         )
-    module = ARCHITECTURE_REGISTRY[architecture_name](action_dim, tuple(obs_shape), dtype)
+    module = ARCHITECTURE_REGISTRY[architecture_name](
+        action_dim, tuple(obs_shape), dtype, **module_kwargs
+    )
     arch_params = {
         "obs_shape": [int(x) for x in obs_shape],
         "action_dim": int(action_dim),

@@ -11,8 +11,9 @@ with no final norm, and the shared heads on the (B, M*N, d) token features.
 means d.
 
 The q/k/v/out projections are plain ``F.linear`` in the compute dtype with
-f32 parameters; the attention itself is ``ops.attention.tiny_head_attention``
-(the CUDA kernels on the card). The body has no batch-dependent layer, so
+f32 parameters; the attention itself is the module's ``attention_fn``,
+by default ``ops.attention.tiny_head_attention`` (the CUDA kernels on the
+card), as flax's ``attention_fn`` in the JAX package. The body has no batch-dependent layer, so
 ``train`` changes nothing.
 
 Initialisation follows the JAX package (``models/registry.py::init_network``
@@ -22,7 +23,7 @@ and positional embeddings normal(0.02), the heads orthogonal.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -42,8 +43,10 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with flax ``MultiHeadDotProductAttention``'s
     parameters: query/key/value (d -> qkv) and out (qkv -> d), all biased."""
 
-    def __init__(self, embed_dim: int, num_heads: int, qkv_features: int):
+    def __init__(self, embed_dim: int, num_heads: int, qkv_features: int,
+                 attention_fn: Callable = tiny_head_attention):
         super().__init__()
+        self.attention_fn = attention_fn
         if qkv_features % num_heads:
             raise ValueError(f"qkv_features {qkv_features} not divisible by {num_heads} heads")
         self.num_heads = num_heads
@@ -59,16 +62,18 @@ class MultiHeadAttention(nn.Module):
         q = linear(x, self.query, dtype).view(shape)
         k = linear(x, self.key, dtype).view(shape)
         v = linear(x, self.value, dtype).view(shape)
-        o = tiny_head_attention(q, k, v)
+        o = self.attention_fn(q, k, v)
         return linear(o.reshape(b, l, -1), self.out, dtype)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: Optional[int] = None,
-                 qkv_features: Optional[int] = None):
+                 qkv_features: Optional[int] = None,
+                 attention_fn: Callable = tiny_head_attention):
         super().__init__()
         self.ln1 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
-        self.attn = MultiHeadAttention(embed_dim, num_heads, qkv_features or embed_dim)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, qkv_features or embed_dim,
+                                       attention_fn)
         ffn = 4 * embed_dim if ffn_dim is None else ffn_dim
         self.has_ffn = ffn > 0
         if self.has_ffn:
@@ -103,14 +108,16 @@ class TokenEmbedding(nn.Module):
 class TransformerActorCritic(nn.Module):
     def __init__(self, action_dim: int, obs_shape, embed_dim: int = 128, num_layers: int = 4,
                  num_heads: int = 4, head_hidden: int = 256, dtype=torch.float32,
-                 ffn_dim: Optional[int] = None, qkv_features: Optional[int] = None):
+                 ffn_dim: Optional[int] = None, qkv_features: Optional[int] = None,
+                 attention_fn: Callable = tiny_head_attention):
         super().__init__()
         _, m, n = obs_shape
         self.dtype = dtype
         self.num_heads = num_heads
         self.embed = TokenEmbedding(obs_shape, embed_dim)
         self.layers = nn.ModuleList(
-            EncoderLayer(embed_dim, num_heads, ffn_dim, qkv_features) for _ in range(num_layers)
+            EncoderLayer(embed_dim, num_heads, ffn_dim, qkv_features, attention_fn)
+            for _ in range(num_layers)
         )
         self.heads = ActorCriticHeads(embed_dim, m * n, action_dim, head_hidden)
 

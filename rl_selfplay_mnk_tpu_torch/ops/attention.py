@@ -1,15 +1,20 @@
-"""Fused attention for tiny heads on board-length tokens (kernels K3, K4, K8,
-K9) and their plain PyTorch versions.
+"""Fused attention for tiny heads on board-length tokens (kernels K3-K9) and
+their plain PyTorch versions.
 
 Replaces the TPU kernels of ``rl_selfplay_mnk_tpu/ops/pallas_attention.py``:
 
   * ``attention_folded`` on (BH, Dh, L): ``_attn_kernel`` forward (K3) and
     ``_attn_bwd_kernel`` backward (K4);
   * ``attention_packed`` on (B, L, D = H * Dh): ``_packed_fwd_kernel``
-    forward (K8) and ``_packed_bwd_kernel`` backward (K9);
-  * ``tiny_head_attention`` on (B, L, H, Dh), the models' entry, with the
-    same dispatch: Dh < 32 folds with a transpose and takes the folded pair,
-    Dh >= 32 reshapes (free) and takes the packed pair.
+    forward (K8) and ``_packed_bwd_kernel`` backward (K9), a block per
+    (board, head);
+  * ``attention_lane_slice_fwd`` on (B, L, D): ``_lane_slice_fwd_kernel``
+    (K5), forward only, a block per board, heads as column slices on chip;
+  * ``attention_infold`` on (B, L, D): ``_infold_fwd_kernel`` forward (K6) and
+    ``_infold_bwd_kernel`` backward (K7), a block per board, the board
+    transposed on chip and heads as row slices;
+  * ``tiny_head_attention`` on (B, L, H, Dh), the models' entry, which picks
+    among them (see there).
 
 All compute dense softmax attention per head with the scores kept on chip::
 
@@ -22,14 +27,17 @@ Each pair is a ``torch.autograd.Function`` that saves q, k, v only and
 recomputes the probabilities in its backward; the incoming gradient is cast
 to q's dtype first.
 
-On the H100 both directions are bound by bytes at the trainer's shapes; the
-kernels (``csrc/attention.cu``) hold one head per block in shared memory and
-do their products with FMA on the CUDA cores, which bound them for now.
+On the H100 both directions are bound by bytes at the models' shapes; the
+kernels (``csrc/attention.cu``, ``csrc/attention_board.cu``) hold a head or a
+board in shared memory and do their products with FMA on the CUDA cores,
+which bound them for now.
 
-The four launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
-``attention_packed_fwd``, ``attention_packed_bwd``) launch their kernel for
-CUDA tensors, adding one to their ``.launches``, and run their
-``*_reference`` for CPU tensors; there is no other route.
+The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
+``attention_packed_fwd``, ``attention_packed_bwd``,
+``attention_lane_slice_fwd``, ``attention_infold_fwd``,
+``attention_infold_bwd``) launch their kernel for CUDA tensors, adding one to
+their ``.launches``, and run their ``*_reference`` for CPU tensors; there is
+no other route.
 """
 
 from __future__ import annotations
@@ -42,7 +50,16 @@ import torch
 
 from .cuda_build import KernelError, check_launch, load_library
 
-PACKED_MIN_HEAD_DIM = 32  # tiny_head_attention: below it fold, from it on pack
+PACKED_MIN_HEAD_DIM = 32  # tiny_head_attention: from it on, the packed pair
+# tiny_head_attention below that width, where a gradient is recorded: "folded"
+# (fold, K3/K4, unfold) or "infold" (K6/K7 on the packed interface).
+GRADIENT_ROUTE = "folded"
+# tiny_head_attention below that width, where no gradient is recorded: the
+# lane-slice kernel (K5) up to this many (head, query row) pairs a board, the
+# packed forward (K8) above. A K5 block walks all of a board's pairs; at 13x13
+# with eight heads (1352) it loses to a block per (board, head) at every batch
+# read, at 676 pairs and fewer it beats the fold route (PERF.md, "Threshold").
+LANE_SLICE_MAX_HEAD_ROWS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +133,33 @@ def attention_packed_bwd_reference(q, k, v, do, h: int, dh: int):
     return tuple(_heads_to_packed(g, q.shape[0], h) for g in grads)
 
 
+def attention_lane_slice_reference(q, k, v, h: int, dh: int):
+    """Plain version of the lane-slice forward: every head is a column slice
+    of the rows, q, k, v (B, L, H*Dh) -> (B, L, H*Dh)."""
+    heads = [slice(i * dh, (i + 1) * dh) for i in range(h)]
+    return torch.cat([_heads_fwd_reference(q[:, :, sl], k[:, :, sl], v[:, :, sl])
+                      for sl in heads], dim=2)
+
+
+def attention_infold_reference(q, k, v, h: int, dh: int):
+    """Plain version of the in-kernel-fold forward: the boards transposed to
+    (B, H*Dh, L), every head a row slice, the result transposed back."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    heads = [slice(i * dh, (i + 1) * dh) for i in range(h)]
+    out = [_heads_fwd_reference(*(t[:, sl].transpose(1, 2) for t in (qt, kt, vt))).transpose(1, 2)
+           for sl in heads]
+    return torch.cat(out, dim=1).transpose(1, 2).contiguous()
+
+
+def attention_infold_bwd_reference(q, k, v, do, h: int, dh: int):
+    """Plain version of the in-kernel-fold backward: (B, L, H*Dh) x4 -> dq, dk, dv."""
+    ts = [t.transpose(1, 2) for t in (q, k, v, do)]
+    heads = [slice(i * dh, (i + 1) * dh) for i in range(h)]
+    grads = [_heads_bwd_reference(*(t[:, sl].transpose(1, 2) for t in ts)) for sl in heads]
+    return tuple(torch.cat([g[i].transpose(1, 2) for g in grads], dim=1).transpose(1, 2).contiguous()
+                 for i in range(3))
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -166,6 +210,53 @@ def _threads(backward: bool, l: int, dh: int, device: torch.device) -> int:
     return threads
 
 
+@functools.lru_cache(maxsize=None)
+def _board_lib():
+    lib = load_library("attention_board")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.board_attn_smem_bytes.argtypes = [i] * 7
+    lib.board_attn_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.board_attn_max_tokens, lib.board_attn_max_head_dim, lib.board_attn_max_threads):
+        fn.argtypes = []
+        fn.restype = i
+    lib.attn_lane_slice_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
+    lib.attn_infold_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
+    lib.attn_infold_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
+    for fn in (lib.attn_lane_slice_fwd_launch, lib.attn_infold_fwd_launch,
+               lib.attn_infold_bwd_launch):
+        fn.restype = i
+    return lib
+
+
+_BOARD_KINDS = {"lane slice forward": 0, "in-kernel-fold forward": 1, "in-kernel-fold backward": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _board_plan(kind: str, l: int, h: int, dh: int, itemsize: int, device: torch.device):
+    """(threads per block, heads per pass) of a one-block-per-board kernel:
+    the most threads, then the most heads at a time, that fit the card's
+    shared memory per block. The lane-slice kernel holds all heads at once."""
+    lib = _board_lib()
+    if l > lib.board_attn_max_tokens() or dh > lib.board_attn_max_head_dim():
+        raise KernelError(
+            f"attention {kind}: L={l}, Dh={dh} is beyond the kernel's "
+            f"L <= {lib.board_attn_max_tokens()}, Dh <= {lib.board_attn_max_head_dim()}"
+        )
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    code = _BOARD_KINDS[kind]
+    threads = lib.board_attn_max_threads()
+    while threads >= 32:
+        for heads in (range(h, 0, -1) if code else (h,)):
+            if lib.board_attn_smem_bytes(code, l, h, dh, heads, threads, itemsize) <= limit:
+                return threads, heads
+        threads //= 2
+    need = lib.board_attn_smem_bytes(code, l, h, dh, 1 if code else h, 32, itemsize)
+    raise KernelError(
+        f"attention {kind}: L={l}, H={h}, Dh={dh} needs {need} bytes of shared memory "
+        f"per block, the card allows {limit}"
+    )
+
+
 def _on_card(name: str, q: torch.Tensor) -> bool:
     """True for the kernel (a CUDA tensor), False for the plain version (CPU)."""
     if q.device.type == "cpu":
@@ -175,10 +266,9 @@ def _on_card(name: str, q: torch.Tensor) -> bool:
     return True
 
 
-def _launch(wrapper, entry_name: str, backward: bool, tensors: dict, l: int, dh: int, dims: tuple):
-    """Check the inputs, launch one kernel on the current stream and count
-    it on ``wrapper``. Returns the outputs: [o] or [dq, dk, dv]."""
-    name = wrapper.__name__
+def _checked(name: str, tensors: dict) -> torch.Tensor:
+    """The tensors of one launch are alike: contiguous, of one supported
+    dtype, one shape and one device. Returns q."""
     q = tensors["q"]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: unsupported dtype {q.dtype}")
@@ -188,15 +278,39 @@ def _launch(wrapper, entry_name: str, backward: bool, tensors: dict, l: int, dh:
                 f"{name}: {key} must be a contiguous {q.dtype} tensor of shape {tuple(q.shape)} "
                 f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    threads = _threads(backward, l, dh, q.device)
-    outs = [torch.empty_like(q) for _ in range(3 if backward else 1)]
-    code = getattr(_lib(), entry_name)(
+    return q
+
+
+def _run(wrapper, entry, tensors: dict, n_out: int, args: tuple):
+    """Launch ``entry`` on the current stream with ``args`` after the
+    pointers and count it on ``wrapper``. Returns the n_out outputs."""
+    q = tensors["q"]
+    outs = [torch.empty_like(q) for _ in range(n_out)]
+    code = entry(
         int(q.dtype == torch.bfloat16), *(t.data_ptr() for t in (*tensors.values(), *outs)),
-        *dims, threads, torch.cuda.current_stream(q.device).cuda_stream,
+        *args, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch(entry_name, code)
+    check_launch(entry.__name__, code)
     wrapper.launches += 1
     return outs
+
+
+def _launch(wrapper, entry_name: str, backward: bool, tensors: dict, l: int, dh: int, dims: tuple):
+    """One kernel of ``csrc/attention.cu`` (a block per head): [o] or [dq, dk, dv]."""
+    q = _checked(wrapper.__name__, tensors)
+    threads = _threads(backward, l, dh, q.device)
+    return _run(wrapper, getattr(_lib(), entry_name), tensors, 3 if backward else 1,
+                (*dims, threads))
+
+
+def _launch_board(wrapper, entry_name: str, kind: str, tensors: dict, dims: tuple):
+    """One kernel of ``csrc/attention_board.cu`` (a block per board)."""
+    q = _checked(wrapper.__name__, tensors)
+    _, l, h, dh = dims
+    threads, heads = _board_plan(kind, l, h, dh, q.element_size(), q.device)
+    args = (*dims, threads) if kind == "lane slice forward" else (*dims, heads, threads)
+    return _run(wrapper, getattr(_board_lib(), entry_name), tensors,
+                3 if kind.endswith("backward") else 1, args)
 
 
 def _folded_dims(name: str, q: torch.Tensor) -> tuple:
@@ -247,10 +361,38 @@ def attention_packed_bwd(q, k, v, do, h: int, dh: int):
                          {"q": q, "k": k, "v": v, "do": do}, dims[1], dh, dims))
 
 
-attention_folded_fwd.launches = 0
-attention_folded_bwd.launches = 0
-attention_packed_fwd.launches = 0
-attention_packed_bwd.launches = 0
+def attention_lane_slice_fwd(q, k, v, h: int, dh: int):
+    """K5: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh). Forward only."""
+    if not _on_card("attention_lane_slice_fwd", q):
+        return attention_lane_slice_reference(q, k, v, h, dh)
+    dims = _packed_dims("attention_lane_slice_fwd", q, h, dh)
+    return _launch_board(attention_lane_slice_fwd, "attn_lane_slice_fwd_launch",
+                         "lane slice forward", {"q": q, "k": k, "v": v}, dims)[0]
+
+
+def attention_infold_fwd(q, k, v, h: int, dh: int):
+    """K6: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh)."""
+    if not _on_card("attention_infold_fwd", q):
+        return attention_infold_reference(q, k, v, h, dh)
+    dims = _packed_dims("attention_infold_fwd", q, h, dh)
+    return _launch_board(attention_infold_fwd, "attn_infold_fwd_launch",
+                         "in-kernel-fold forward", {"q": q, "k": k, "v": v}, dims)[0]
+
+
+def attention_infold_bwd(q, k, v, do, h: int, dh: int):
+    """K7: q, k, v, do (B, L, H*Dh) -> dq, dk, dv (B, L, H*Dh)."""
+    if not _on_card("attention_infold_bwd", q):
+        return attention_infold_bwd_reference(q, k, v, do, h, dh)
+    dims = _packed_dims("attention_infold_bwd", q, h, dh)
+    return tuple(_launch_board(attention_infold_bwd, "attn_infold_bwd_launch",
+                               "in-kernel-fold backward",
+                               {"q": q, "k": k, "v": v, "do": do}, dims))
+
+
+for _wrapper in (attention_folded_fwd, attention_folded_bwd, attention_packed_fwd,
+                 attention_packed_bwd, attention_lane_slice_fwd, attention_infold_fwd,
+                 attention_infold_bwd):
+    _wrapper.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +425,19 @@ class _AttentionPacked(torch.autograd.Function):
         return (*attention_packed_bwd(q, k, v, g.to(q.dtype).contiguous(), *ctx.heads), None, None)
 
 
+class _AttentionInfold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, h, dh):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = (h, dh)
+        return attention_infold_fwd(q, k, v, h, dh)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_infold_bwd(q, k, v, g.to(q.dtype).contiguous(), *ctx.heads), None, None)
+
+
 def attention_folded(q, k, v):
     """Attention on folded heads (BH, Dh, L), differentiable: K3 forward, K4
     backward. Saves q, k, v and recomputes the probabilities in the backward."""
@@ -295,23 +450,46 @@ def attention_packed(q, k, v, h: int, dh: int):
     return _AttentionPacked.apply(q, k, v, h, dh)
 
 
-def tiny_head_attention(query, key, value):
+def attention_infold(q, k, v, h: int, dh: int):
+    """Attention on packed heads (B, L, H*Dh) by the one-block-per-board
+    kernels, differentiable: K6 forward, K7 backward. Saves q, k, v and
+    recomputes the probabilities in the backward."""
+    return _AttentionInfold.apply(q, k, v, h, dh)
+
+
+ROUTES = ("folded", "infold")  # what a caller of tiny_head_attention can force
+
+
+def tiny_head_attention(query, key, value, route=None):
     """Attention for (B, L, H, Dh) query, key, value -> (B, L, H, Dh).
 
-    Dh < 32 (many tiny heads) folds to (BH, Dh, L) with a transpose and
-    takes the folded pair; Dh >= 32 reshapes to (B, L, H*Dh), which is free
-    on a contiguous tensor, and takes the packed pair.
+    With ``route`` None: Dh >= 32 takes the packed pair (K8/K9); below that,
+    a forward that records no gradient (rollout, opponent, validation,
+    tournament, play) takes the forward-only lane-slice kernel (K5), or the
+    packed forward (K8) past ``LANE_SLICE_MAX_HEAD_ROWS``, and one that does
+    takes ``GRADIENT_ROUTE``. All but ``"folded"`` work on
+    (B, L, H*Dh), a free reshape of a contiguous tensor; ``"folded"`` moves
+    the heads to (BH, Dh, L) with a transpose, runs K3/K4 and moves them back.
+    A caller can force either of ``ROUTES``, with or without a gradient.
     """
     b, l, h, dh = query.shape
-    if dh < PACKED_MIN_HEAD_DIM:
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"tiny_head_attention: route must be one of {ROUTES}, got {route!r}")
+    recording = torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value))
+    if route is None and dh < PACKED_MIN_HEAD_DIM and recording:
+        route = GRADIENT_ROUTE
+    if route == "folded":
         def fold(t):  # (B, L, H, Dh) -> (BH, Dh, L)
             return t.permute(0, 2, 3, 1).reshape(b * h, dh, l).contiguous()
 
         out = attention_folded(fold(query), fold(key), fold(value))
         return out.reshape(b, h, dh, l).permute(0, 3, 1, 2)
     d = h * dh
-    out = attention_packed(
-        query.reshape(b, l, d).contiguous(), key.reshape(b, l, d).contiguous(),
-        value.reshape(b, l, d).contiguous(), h, dh,
-    )
+    q, k, v = (t.reshape(b, l, d).contiguous() for t in (query, key, value))
+    if route == "infold":
+        out = attention_infold(q, k, v, h, dh)
+    elif dh >= PACKED_MIN_HEAD_DIM or h * l > LANE_SLICE_MAX_HEAD_ROWS:
+        out = attention_packed(q, k, v, h, dh)
+    else:
+        out = attention_lane_slice_fwd(q, k, v, h, dh)
     return out.reshape(b, l, h, dh)

@@ -3,7 +3,8 @@
 Each source has a plain C interface and is compiled on first use by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``rl_selfplay_mnk_tpu_torch/_build/``, under a name keyed on a hash of the
-source and the flags, then loaded with ``ctypes``. Nothing is built at
+source, the headers beside it (``csrc/*.cuh``) and the flags, then loaded
+with ``ctypes``. Nothing is built at
 import time. ``build_all`` starts one ``nvcc`` per source, all at once.
 
 A failed build or launch raises ``KernelError``; there is no fallback.
@@ -26,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("env_step", "resblock", "attention")
+SOURCES = ("env_step", "resblock", "attention", "attention_board")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -8,7 +8,9 @@
   * a pool insert every 20 iterations, FIFO eviction;
   * validation against the benchmark every ``validation_interval``
     iterations; the benchmark (first the untrained network) is replaced by
-    a new snapshot when the score rate exceeds 0.60;
+    a new snapshot when the score rate exceeds 0.60; the learner is
+    exported after every validation (marked as a benchmark breaker when it
+    was promoted) and once more at the end, under ``<export_dir>/<run>/``;
   * per-iteration fault handling: log the error and continue, except for
     a kernel that fails to build, load or launch (``KernelError``), which
     ends the run.
@@ -47,6 +49,7 @@ from .selfplay.policies import NNPolicy
 from .selfplay.validation import validate
 from .utils.hardware import HardwareConfig, detect_hardware_config
 from .utils.metrics import MetricsLogger
+from .utils.model_export import ModelExporter
 
 
 def get_default_config() -> Dict[str, Any]:
@@ -96,6 +99,10 @@ def apply_family_hparams(config: Dict[str, Any], arch: str) -> Dict[str, Any]:
         config["entropy_coef_schedule"]["params"]["final_coef"] = 0.001
         config["entropy_coef"] = 0.05
         config["learning_rate"] = 8e-4
+    elif "cnn" in arch:
+        config["entropy_coef_schedule"]["params"]["final_coef"] = 0.001
+        config["entropy_coef"] = 0.04
+        config["learning_rate"] = 6e-4
     return config
 
 
@@ -126,11 +133,12 @@ def build_config(arch: Optional[str] = None, mnk=None, batch_size: Optional[int]
 
 
 def create_learner(config: Dict[str, Any], hw: HardwareConfig):
-    """Network + optimizer + PPO learner on ``hw.device``."""
+    """Network + optimizer + PPO learner on ``hw.device``. Returns
+    ``(learner, env_cfg, lr_schedule, arch_params)``."""
     m, n, k = config["mnk"]
     env_cfg = EnvConfig(m, n, k).validate()
     obs_shape = (2, m, n)
-    module, _ = create_model_from_architecture(
+    module, arch_params = create_model_from_architecture(
         config["architecture_name"], obs_shape, m * n, dtype=hw.compute_dtype
     )
     # Initialise on the CPU from the seed, so both devices start alike.
@@ -164,7 +172,7 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
     optimizer = PPOOptimizer(module.parameters(), lr_schedule)
     generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 1)
     learner = PPOLearner(module, ppo_cfg, optimizer, generator, hw.device)
-    return learner, env_cfg, lr_schedule
+    return learner, env_cfg, lr_schedule, arch_params
 
 
 def train_mnk(
@@ -173,13 +181,14 @@ def train_mnk(
     device: Optional[str] = None,
 ) -> Dict[str, Any]:
     """The training loop. Returns a summary: per-iteration metrics, the
-    validation results, the errors that the loop logged and skipped, and
-    the trained ``model``."""
+    validation results, the errors that the loop logged and skipped, the
+    directory of the exports (``export_dir``) and the trained ``model``."""
     hw = detect_hardware_config(device or config.get("device"))
     own_logger = logger is None
     if own_logger:
         logger = MetricsLogger(run_name=config.get("run_name"), config=config)
-    learner, env_cfg, lr_schedule = create_learner(config, hw)
+    learner, env_cfg, lr_schedule, arch_params = create_learner(config, hw)
+    exporter = ModelExporter(logger.run_name, base_dir=config.get("export_dir", "models"))
     policy_generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 2)
 
     def network_policy(frozen, generator=policy_generator):
@@ -203,7 +212,8 @@ def train_mnk(
     host_rng = _random.Random(config["seed"])
     learner.reset_envs(network_policy(benchmark))
     summary: Dict[str, Any] = {"iterations": [], "validations": [], "errors": [],
-                               "jsonl_path": logger.jsonl_path}
+                               "jsonl_path": logger.jsonl_path,
+                               "export_dir": exporter.export_dir}
 
     print(f"Starting training for {total_iterations} iterations")
     current_env_steps = 0
@@ -252,9 +262,13 @@ def train_mnk(
                     f"D: {validation_res['validation/vs_benchmark/draw_rate']:.2f} | "
                     f"L: {validation_res['validation/vs_benchmark/loss_rate']:.2f}"
                 )
-                if score_rate > config["benchmark_update_threshold_score"]:
+                promoted = score_rate > config["benchmark_update_threshold_score"]
+                if promoted:
                     print(f"--- New benchmark agent at step {i}! ---")
                     benchmark = snapshot(learner.model)
+                exporter.export_model(learner.model, config["architecture_name"], arch_params, i,
+                                      is_benchmark_breaker=promoted)
+                if promoted:
                     logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
         except KernelError:
             raise
@@ -262,6 +276,8 @@ def train_mnk(
             handle_training_error(logger, e, i, current_env_steps)
             summary["errors"].append(f"iteration {i}: {e!r}")
             continue
+    exporter.export_model(learner.model, config["architecture_name"], arch_params,
+                          total_iterations, is_benchmark_breaker=False)
     if own_logger:
         logger.finish()
     summary["model"] = learner.model
@@ -336,6 +352,8 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     parser.add_argument("--total-steps", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--run-name", default=None)
+    parser.add_argument("--export-dir", default=None,
+                        help="exports go to <dir>/<run>/ (default: models)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
@@ -349,6 +367,8 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     if args.seed is not None:
         config["seed"] = args.seed
     config["run_name"] = args.run_name
+    if args.export_dir:
+        config["export_dir"] = args.export_dir
     config["device"] = args.device
     return config
 

@@ -9,11 +9,19 @@ no overlap) and idle share for each, the launches of the port's CUDA
 kernels, and the kernels that take the most device time. The last line is
 one JSON object with those numbers.
 
+``--tournament A B`` traces instead one half-pairing of a tournament
+(``play_batch_games`` between the exports A and B, ``--games`` boards, after
+one untraced half-pairing as warm-up) and prints the same numbers for it and
+per turn: a turn is two dense policy forwards, the channel flip, one env
+step and the bookkeeping, and ends in one host synchronisation.
+
 Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json]
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling --mnk 9 9 5 --games 16 \\
+        --tournament models/tpu_smoke30/model_00030.msgpack models/tpu_smoke30/model_00025.msgpack
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ from ..models.registry import eval_apply
 from ..ops.attention import (
     attention_folded_bwd,
     attention_folded_fwd,
+    attention_infold_bwd,
+    attention_infold_fwd,
+    attention_lane_slice_fwd,
     attention_packed_bwd,
     attention_packed_fwd,
 )
@@ -48,6 +59,9 @@ PORT_KERNELS = {
     "resblock": fused_residual_block,
     "attn_folded_fwd": attention_folded_fwd,
     "attn_folded_bwd": attention_folded_bwd,
+    "attn_lane_slice_fwd": attention_lane_slice_fwd,
+    "attn_infold_fwd": attention_infold_fwd,
+    "attn_infold_bwd": attention_infold_bwd,
     "attn_packed_fwd": attention_packed_fwd,
     "attn_packed_bwd": attention_packed_bwd,
 }
@@ -79,7 +93,7 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
                       arch: str | None = None, mnk=None, batch_size: int | None = None) -> dict:
     hw = detect_hardware_config("cuda")
     config = build_config(arch, mnk, batch_size)
-    learner, _, _ = create_learner(config, hw)
+    learner, _, _, _ = create_learner(config, hw)
     generator = torch.Generator(device=hw.device).manual_seed(1)
     ent = entropy_coef_at(config["entropy_coef"], config["entropy_coef_schedule"], 0,
                           config["num_envs"], config["n_steps"])
@@ -124,6 +138,53 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
             "port_kernel_launches": launches, "top_kernels": kernels}
 
 
+def profile_half_pairing(paths, mnk=(9, 9, 5), games: int = 16, trace: str | None = None,
+                         top: int = 15) -> dict:
+    """One traced half-pairing between two exports on the card."""
+    from ..compare.match_runner import play_batch_games
+    from ..compare.model_loader import ModelLoader
+    from ..env.mnk_env import EnvConfig
+
+    device = detect_hardware_config("cuda").device
+    models = ModelLoader(device).load_from_paths(list(paths))
+    if len(models) != 2:
+        raise ValueError(f"--tournament needs two exports, found {len(models)} in {list(paths)}")
+    (params1, act1), (params2, act2) = (m.load_model() for m in models)
+    cfg = EnvConfig(*mnk)
+    generator = torch.Generator(device=device).manual_seed(0)
+    play_batch_games(cfg, act1, act2, params1, params2, games, 0, generator, device)
+    reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = play_batch_games(cfg, act1, act2, params1, params2, games, 0, generator, device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace.replace(".json", ".tournament.json"))
+    launches = read_launches()
+    turns = launches["env_step"]  # one env step a turn
+    times = kernel_times(prof)
+    busy = sum(t for t, _ in times.values()) / 1e6
+    total = sum(c for _, c in times.values())
+    kernels = sorted(({"name": k[:90], "device_ms": t / 1e3, "count": c}
+                      for k, (t, c) in times.items()), key=lambda r: -r["device_ms"])[:top]
+    print(f"half-pairing {models[0].unique_id} vs {models[1].unique_id}, {games} games on "
+          f"{'x'.join(map(str, mnk))}: result {result}, {turns} turns, wall {wall:.3f}s "
+          f"({1e3 * wall / turns:.3f} ms a turn), device busy {busy:.4f}s, idle share "
+          f"{1.0 - busy / wall:.3f}, {total} kernel launches ({total / turns:.1f} a turn), "
+          f"port kernels {json.dumps(launches)}")
+    for r in kernels:
+        print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
+    return {"device": torch.cuda.get_device_name(0),
+            "models": [m.unique_id for m in models],
+            "architectures": [m.architecture_name for m in models], "mnk": list(mnk),
+            "games": games, "turns": turns, "wall_s": wall, "wall_ms_per_turn": 1e3 * wall / turns,
+            "device_busy_s": busy, "idle_share": 1.0 - busy / wall, "kernel_launches": total,
+            "kernel_launches_per_turn": total / turns, "port_kernel_launches": launches,
+            "top_kernels": kernels}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--warmup", type=int, default=2)
@@ -131,7 +192,14 @@ def main(argv=None) -> None:
     parser.add_argument("--arch", default=None, help="architecture registry name")
     parser.add_argument("--mnk", type=int, nargs=3, default=None, metavar=("M", "N", "K"))
     parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--tournament", nargs=2, default=None, metavar=("A", "B"),
+                        help="trace one half-pairing between these two exports instead")
+    parser.add_argument("--games", type=int, default=16, help="boards of the half-pairing")
     args = parser.parse_args(argv)
+    if args.tournament:
+        print(json.dumps(profile_half_pairing(args.tournament, args.mnk or (9, 9, 5), args.games,
+                                              args.trace)))
+        return
     print(json.dumps(profile_iteration(args.warmup, args.trace, arch=args.arch, mnk=args.mnk,
                                        batch_size=args.batch_size)))
 

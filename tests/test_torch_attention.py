@@ -1,9 +1,11 @@
 """The port's attention (plain versions, used on CPU tensors) against the JAX
 package's Pallas kernels in interpret mode and its XLA reference, on the
-same numpy arrays: the folded and the packed pair, forward and backward, and
+same numpy arrays: the folded and the packed pair, forward and backward,
 ``tiny_head_attention`` with its autograd gradient through both branches of
-the dispatch. Float32 on the CPU, and bf16 once to pin where p and ds are
-rounded."""
+the dispatch, then the one-block-per-board kernels' plain versions (lane
+slice, in-kernel fold), ``attention_infold`` against ``jax.grad`` and the
+dispatch's choice of route. Float32 on the CPU, and bf16 once to pin where p
+and ds are rounded."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,10 @@ import torch
 
 from rl_selfplay_mnk_tpu.ops import pallas_attention as jattn
 from rl_selfplay_mnk_tpu_torch.ops import attention as tattn
+
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
 
 # As tests/test_pallas_attention.py: f32 sums in another order.
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -154,3 +160,157 @@ def test_bf16_rounding_points_match_pallas_interpret():
     p = tattn._probabilities_reference(q, k)
     o_unrounded_p = torch.matmul(p, v.float()).to(torch.bfloat16)
     assert not torch.equal(o_unrounded_p.transpose(1, 2), got)
+
+
+# ---------------------------------------------------------------------------
+# the one-block-per-board kernels' plain versions (lane slice, in-kernel fold)
+# ---------------------------------------------------------------------------
+
+BOARD_SHAPES = [(4, 81, 8, 12), (2, 25, 4, 14)]  # as tests/test_pallas_attention.py
+
+
+@pytest.mark.parametrize("b,l,h,dh", BOARD_SHAPES)
+def test_lane_slice_forward_matches_pallas_interpret(b, l, h, dh):
+    xs = arrays(8, (b, l, h * dh), 3)
+    want = jattn._attention_lane_slice_fwd_pallas(
+        *[jnp.asarray(x) for x in xs], h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_lane_slice_reference(*to_torch(xs), h, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    # On CPU tensors the wrapper is the plain version, and counts no launch.
+    before = tattn.attention_lane_slice_fwd.launches
+    np.testing.assert_array_equal(
+        tattn.attention_lane_slice_fwd(*to_torch(xs), h, dh).numpy(), got.numpy())
+    assert tattn.attention_lane_slice_fwd.launches == before
+
+
+@pytest.mark.parametrize("b,l,h,dh", BOARD_SHAPES)
+def test_infold_pair_matches_pallas_interpret(b, l, h, dh):
+    xs = arrays(9, (b, l, h * dh), 4)
+    js = [jnp.asarray(x) for x in xs]
+    want = jattn._attention_infold_fwd_pallas(*js[:3], h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_infold_reference(*to_torch(xs[:3]), h, dh)
+    assert got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    np.testing.assert_array_equal(tattn.attention_infold_fwd(*to_torch(xs[:3]), h, dh).numpy(),
+                                  got.numpy())
+    want = jattn._attention_infold_bwd_pallas(*js, h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_infold_bwd_reference(*to_torch(xs), h, dh)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+    for g, w in zip(tattn.attention_infold_bwd(*to_torch(xs), h, dh), got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_board_plain_versions_are_the_packed_function():
+    """Column slices, row slices of the transposed board and the packed
+    reshape separate the same heads: one function, three ways to write it."""
+    b, l, h, dh = 3, 9, 4, 6
+    ts = to_torch(arrays(10, (b, l, h * dh), 4))
+    packed = tattn.attention_packed_reference(*ts[:3], h, dh)
+    for fn in (tattn.attention_lane_slice_reference, tattn.attention_infold_reference):
+        np.testing.assert_allclose(fn(*ts[:3], h, dh).numpy(), packed.numpy(), rtol=1e-6, atol=1e-6)
+    for g, w in zip(tattn.attention_infold_bwd_reference(*ts, h, dh),
+                    tattn.attention_packed_bwd_reference(*ts, h, dh)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,l,h,dh", [(2, 25, 4, 14), (2, 9, 8, 12)])
+def test_attention_infold_and_gradient_match_jax(b, l, h, dh, monkeypatch):
+    """``attention_infold`` (the forward, and autograd through the Function's
+    backward) against the JAX package's ``_attention_infold`` and jax.grad
+    with its kernels in interpret mode; then the same through the forced
+    route of ``tiny_head_attention``."""
+    xs = arrays(11, (b, l, h * dh), 4)
+    w = jnp.asarray(xs[3])
+
+    def loss_j(q, k, v):
+        return jnp.sum(jattn._attention_infold(q, k, v, h, dh, 2, True) * w)
+
+    js = [jnp.asarray(x) for x in xs[:3]]
+    want = jattn._attention_infold(*js, h, dh, 2, True)
+    want_grads = jax.grad(loss_j, argnums=(0, 1, 2))(*js)
+
+    calls = []
+    inner = tattn.attention_infold_bwd
+    monkeypatch.setattr(tattn, "attention_infold_bwd",
+                        lambda *a: calls.append("attention_infold_bwd") or inner(*a))
+    leaves = [t.requires_grad_(True) for t in to_torch(xs[:3])]
+    got = tattn.attention_infold(*leaves, h, dh)
+    saved = got.grad_fn.saved_tensors
+    assert len(saved) == 3 and all(s.shape == leaves[0].shape for s in saved)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FWD_TOL)
+    (got * torch.from_numpy(xs[3])).sum().backward()
+    assert calls == ["attention_infold_bwd"]
+    for t, wg in zip(leaves, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wg), **BWD_TOL)
+
+    forced = [t.detach().clone().reshape(b, l, h, dh).requires_grad_(True) for t in leaves]
+    out = tattn.tiny_head_attention(*forced, route="infold")
+    np.testing.assert_array_equal(out.detach().reshape(b, l, h * dh).numpy(), got.detach().numpy())
+    (out * torch.from_numpy(xs[3]).reshape(b, l, h, dh)).sum().backward()
+    assert calls == ["attention_infold_bwd"] * 2
+    for t, first in zip(forced, leaves):
+        np.testing.assert_array_equal(t.grad.reshape(b, l, h * dh).numpy(), first.grad.numpy())
+
+
+def test_infold_function_casts_the_gradient_to_the_inputs_type():
+    q, k, v = (t.requires_grad_(True) for t in to_torch(arrays(12, (2, 9, 16), 3), torch.bfloat16))
+    out = tattn.attention_infold(q, k, v, 2, 8)
+    assert out.dtype == torch.bfloat16
+    g = torch.from_numpy(arrays(13, (2, 9, 16), 1)[0])
+    torch.autograd.backward(out, g.to(torch.bfloat16))
+    want = tattn.attention_infold_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                g.to(torch.bfloat16), 2, 8)
+    for t, w in zip((q, k, v), want):
+        assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("route,dh", [("folded", 14), ("infold", 14), (None, 14), (None, 32)],
+                         ids=["folded", "infold", "lane_slice", "packed"])
+def test_every_route_is_the_same_function_without_a_gradient(route, dh):
+    """The two routes a caller can force and the two the dispatch takes by
+    itself without a gradient (Dh < 32: lane slice; Dh >= 32: packed)."""
+    b, l, h = 2, 9, 4
+    q, k, v = to_torch(arrays(14, (b, l, h, dh), 3))
+    want = tattn.attention_packed_reference(*(t.reshape(b, l, h * dh) for t in (q, k, v)), h, dh)
+    with torch.no_grad():
+        got = tattn.tiny_head_attention(q, k, v, route=route)
+    assert got.shape == (b, l, h, dh)
+    np.testing.assert_allclose(got.reshape(b, l, h * dh).numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_dispatch_takes_the_forward_only_kernel_without_a_gradient(monkeypatch):
+    """Dh < 32: no gradient recorded -> the lane-slice forward on the packed
+    interface (the packed forward past ``LANE_SLICE_MAX_HEAD_ROWS`` head rows
+    a board); a gradient recorded -> ``GRADIENT_ROUTE``; Dh >= 32 -> the
+    packed pair either way. Only the routes of ``ROUTES`` can be forced."""
+    calls = []
+    for name in ("attention_folded_fwd", "attention_infold_fwd", "attention_packed_fwd",
+                 "attention_lane_slice_fwd"):
+        inner = getattr(tattn, name)
+        monkeypatch.setattr(tattn, name,
+                            lambda *a, _inner=inner, _name=name: calls.append(_name) or _inner(*a))
+    q, k, v = (t.requires_grad_(True) for t in to_torch(arrays(15, (2, 9, 2, 8), 3)))
+    with torch.no_grad():
+        out = tattn.tiny_head_attention(q, k, v)
+    assert out.grad_fn is None
+    tattn.tiny_head_attention(q.detach(), k.detach(), v.detach())
+    tattn.tiny_head_attention(q, k, v)
+    wide = to_torch(arrays(16, (2, 9, 2, 32), 3))
+    with torch.no_grad():
+        tattn.tiny_head_attention(*wide)
+    assert calls == ["attention_lane_slice_fwd", "attention_lane_slice_fwd",
+                     f"attention_{tattn.GRADIENT_ROUTE}_fwd", "attention_packed_fwd"]
+    del calls[:]
+    many = [t.requires_grad_(True) for t in to_torch(arrays(17, (1, 169, 8, 12), 3))]  # 13x13, d96
+    assert 4 * 169 <= tattn.LANE_SLICE_MAX_HEAD_ROWS < 8 * 169
+    with torch.no_grad():
+        tattn.tiny_head_attention(*many)
+        tattn.tiny_head_attention(*(t[:, :, :4] for t in many))
+    tattn.tiny_head_attention(*many)
+    assert calls == ["attention_packed_fwd", "attention_lane_slice_fwd",
+                     f"attention_{tattn.GRADIENT_ROUTE}_fwd"]
+    assert tattn.ROUTES == ("folded", "infold")
+    for route in ("lane_slice", "packed", "xla"):
+        with pytest.raises(ValueError, match="route must be one of"):
+            tattn.tiny_head_attention(q, k, v, route=route)

@@ -118,6 +118,95 @@ def test_attention_kernels_within_tolerance(device, dtype, packed, b, l, h, dh):
         assert_attn_close(g, w, dtype, name)
 
 
+# The one-block-per-board kernels: the registry's Dh < 32 shapes, a tournament
+# half-pairing, an odd batch, a 3x3 board, a head of 32 and one of 64 (two
+# channels a lane), and a width whose rows are not 16-byte aligned in bf16.
+BOARD_SHAPES = [(16, 81, 4, 14), (5, 81, 4, 14), (3, 169, 8, 12), (8, 9, 4, 14), (5, 81, 3, 32),
+                (3, 169, 2, 64), (2, 25, 2, 8), (3, 25, 3, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,dh", BOARD_SHAPES)
+def test_board_attention_kernels_within_tolerance(device, dtype, b, l, h, dh):
+    """K5 (lane slice), K6 and K7 (in-kernel fold) against their plain versions."""
+    from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
+
+    q, k, v, do = attn_inputs(device, dtype, b, l, h, dh, packed=True)
+    wrappers = (attn.attention_lane_slice_fwd, attn.attention_infold_fwd, attn.attention_infold_bwd)
+    before = [w.launches for w in wrappers]
+    if (l, h * dh, dtype) == (169, 128, torch.float32):
+        # The lane-slice kernel holds the whole board: 3 x 169 x 132 f32 is
+        # more than a block's shared memory. (The dispatch sends Dh >= 32 to
+        # the packed pair; the in-kernel fold walks the heads in groups.)
+        with pytest.raises(KernelError, match="shared memory"):
+            attn.attention_lane_slice_fwd(q, k, v, h, dh)
+        before[0] -= 1
+    else:
+        lane = attn.attention_lane_slice_fwd(q, k, v, h, dh)
+        torch.cuda.synchronize()
+        assert_attn_close(lane, attn.attention_lane_slice_reference(q, k, v, h, dh), dtype, "lane o")
+    fold = attn.attention_infold_fwd(q, k, v, h, dh)
+    grads = attn.attention_infold_bwd(q, k, v, do, h, dh)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [n + 1 for n in before]
+    assert_attn_close(fold, attn.attention_infold_reference(q, k, v, h, dh), dtype, "infold o")
+    want = attn.attention_infold_bwd_reference(q, k, v, do, h, dh)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert_attn_close(g, w, dtype, name)
+    again = attn.attention_infold_bwd(q, k, v, do, h, dh)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads)), "the backward is not deterministic"
+
+
+def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):
+    """f32 at 13x13, d96: five slabs of the whole board exceed a block's
+    shared memory, so the backward takes the heads in groups; same result."""
+    b, l, h, dh = 3, 169, 8, 12
+    threads, heads = attn._board_plan("in-kernel-fold backward", l, h, dh, 4, device)
+    assert heads < h
+    q, k, v, do = attn_inputs(device, torch.float32, b, l, h, dh, packed=True)
+    want = attn.attention_infold_bwd_reference(q, k, v, do, h, dh)
+    for name, g, w in zip(("dq", "dk", "dv"), attn.attention_infold_bwd(q, k, v, do, h, dh), want):
+        assert_attn_close(g, w, torch.float32, name)
+
+
+@pytest.mark.parametrize("route,counters", [
+    ("folded", ("attention_folded_fwd", "attention_folded_bwd")),
+    ("infold", ("attention_infold_fwd", "attention_infold_bwd")),
+])
+def test_forced_routes_agree_with_plain_autograd(device, route, counters):
+    b, l, h, dh = 3, 25, 4, 14
+    g = torch.Generator(device=device).manual_seed(1)
+    q, k, v, w = (torch.randn((b, l, h, dh), device=device, generator=g) for _ in range(4))
+    before = [getattr(attn, name).launches for name in counters]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (attn.tiny_head_attention(*leaves, route=route) * w).sum().backward()
+    assert [getattr(attn, name).launches for name in counters] == [n + 1 for n in before]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bihd,bjhd->bhij", plain[0], plain[1]) / dh**0.5
+    (torch.einsum("bhij,bjhd->bihd", torch.softmax(s, -1), plain[2]) * w).sum().backward()
+    for got, want in zip(leaves, plain):
+        assert_attn_close(got.grad, want.grad, torch.float32, "grad")
+
+
+def test_no_gradient_forward_takes_the_lane_slice_kernel(device):
+    q, k, v = (torch.randn((4, 81, 4, 14), device=device, dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    names = ("attention_lane_slice_fwd", "attention_folded_fwd", "attention_infold_fwd",
+             "attention_packed_fwd")
+    before = [getattr(attn, name).launches for name in names]
+    with torch.no_grad():
+        out = attn.tiny_head_attention(q, k, v)
+    assert out.grad_fn is None and out.shape == q.shape
+    assert [getattr(attn, n).launches - b for n, b in zip(names, before)] == [1, 0, 0, 0]
+    # 13x13 with eight heads of 12: more head rows a board than K5 is given.
+    many = [torch.randn((4, 169, 8, 12), device=device, dtype=torch.bfloat16) for _ in range(3)]
+    with torch.no_grad():
+        out = attn.tiny_head_attention(*many)
+    assert [getattr(attn, n).launches - b for n, b in zip(names, before)] == [1, 0, 0, 1]
+    want = attn.attention_packed_reference(*(t.reshape(4, 169, 96) for t in many), 8, 12)
+    assert_attn_close(out.reshape(4, 169, 96), want, torch.bfloat16, "o")
+
+
 @pytest.mark.parametrize("b,l,h,dh", [(3, 25, 4, 14), (3, 25, 2, 32)])
 def test_attention_function_backward_matches_plain_autograd(device, b, l, h, dh):
     """The Function's backward (the backward kernel) against autograd through
@@ -136,7 +225,8 @@ def test_attention_function_backward_matches_plain_autograd(device, b, l, h, dh)
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         assert_attn_close(got, want, torch.float32, "grad")
-    counters = (attn.attention_folded_bwd, attn.attention_packed_bwd)
+    gradient_bwd = {"folded": attn.attention_folded_bwd, "infold": attn.attention_infold_bwd}
+    counters = (gradient_bwd[attn.GRADIENT_ROUTE], attn.attention_packed_bwd)
     assert counters[dh >= 32].launches > 0
 
 

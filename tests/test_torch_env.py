@@ -15,6 +15,10 @@ from rl_selfplay_mnk_tpu_torch import env as tenv
 from rl_selfplay_mnk_tpu_torch.env.lines import line_matrix
 from rl_selfplay_mnk_tpu_torch.ops.env_step import fused_step_reference
 
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
+
 BOARDS = [(3, 3, 3), (5, 5, 4), (9, 9, 5), (4, 6, 3)]
 
 

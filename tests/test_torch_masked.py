@@ -9,6 +9,10 @@ import torch
 from rl_selfplay_mnk_tpu.ops import masked as jm
 from rl_selfplay_mnk_tpu_torch.ops import masked as tm
 
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
+
 TOL = 1e-6
 
 

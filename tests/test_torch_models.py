@@ -4,7 +4,10 @@ eval forward, gradients, BatchNorm folding, and the plain residual-block
 kernel against the Pallas kernel in interpret mode. Then the transformer
 families (plain, no-FFN speed tier, SGR) the same way: forward, gradients,
 parameter counts, the converter's round trip, a committed 13x13 export, and
-the distributions ``init_network`` draws from. Float32 on the CPU."""
+the distributions ``init_network`` draws from. Then the CNN family and
+``mlp_tiny``: forwards in both modes, running statistics, gradients, the
+folded forward, the converter's round trip and the parameter counts of all
+19 registry names. Float32 on the CPU."""
 
 import pathlib
 
@@ -14,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax import lax
 
 from rl_selfplay_mnk_tpu.models import create_model_from_architecture as jax_create
@@ -37,6 +41,10 @@ from rl_selfplay_mnk_tpu_torch.ops.resblock import (
     fused_residual_block,
     fused_residual_block_reference,
 )
+
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
 
 # Forward/gradient tolerance: f32 convolutions and reductions in another
 # order than XLA's, through 9 conv + BN layers and two LayerNorm heads.
@@ -69,8 +77,15 @@ def test_parameter_count_13x13():
 
 @pytest.mark.parametrize("name", ["cnn_b_s", "cnn_l", "mlp_tiny", "nope"])
 def test_unported_or_unknown_names_raise(name):
-    with pytest.raises(ValueError):
-        create_model_from_architecture(name, (2, 9, 9), 81)
+    """Every name of the JAX registry is ported now; only an unknown one raises."""
+    from rl_selfplay_mnk_tpu.models.registry import ARCHITECTURE_REGISTRY as jax_registry
+
+    if name in jax_registry:
+        model, params = create_model_from_architecture(name, (2, 9, 9), 81)
+        assert count(model) > 0 and params == {"obs_shape": [2, 9, 9], "action_dim": 81}
+    else:
+        with pytest.raises(ValueError, match="Unknown architecture"):
+            create_model_from_architecture(name, (2, 9, 9), 81)
 
 
 def test_init_network_is_orthogonal_with_head_gains():
@@ -366,3 +381,153 @@ def test_init_network_transformer_distributions(name):
     np.testing.assert_allclose((w @ w.T).numpy(), 1e-4 * np.eye(81), atol=1e-8)
     w = model.heads.value_head.dense1.weight.detach()  # (hidden, 81): orthonormal columns * sqrt 2
     np.testing.assert_allclose((w.T @ w).numpy(), 2.0 * np.eye(81), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CNN family and mlp_tiny
+# ---------------------------------------------------------------------------
+
+
+def jax_model(name, seed, m, n):
+    """Initialised flax variables of any registry name with every leaf
+    perturbed (running variances scaled, so they stay positive)."""
+    module, _ = jax_create(name, (2, m, n), m * n)
+    variables = jax_init(module, (2, m, n), jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, x):
+        x = np.asarray(x, np.float32)
+        if path[-1].key == "var":
+            return (x * rng.uniform(0.5, 2.0, x.shape)).astype(np.float32)
+        return (x + 0.05 * rng.normal(size=x.shape)).astype(np.float32)
+
+    return module, jax.tree_util.tree_map_with_path(perturb, variables)
+
+
+def test_registry_holds_the_jax_names_with_the_same_parameter_counts():
+    from rl_selfplay_mnk_tpu.models.registry import ARCHITECTURE_REGISTRY as jax_registry
+    from rl_selfplay_mnk_tpu_torch.models import ARCHITECTURE_REGISTRY
+
+    assert sorted(ARCHITECTURE_REGISTRY) == sorted(jax_registry) and len(jax_registry) == 19
+
+
+@pytest.mark.parametrize("name", ["cnn_s", "cnn_l", "cnn_b_s", "cnn_b_l", "mlp_tiny"])
+def test_cnn_and_mlp_parameter_counts_match_flax(name):
+    module, _ = jax_create(name, (2, 9, 9), 81)
+    variables = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                   jnp.zeros((1, 2, 9, 9)), train=False))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(variables["params"]))
+    model, _ = create_model_from_architecture(name, (2, 9, 9), 81)
+    assert count(model) == want
+
+
+@pytest.mark.parametrize("name,m", [("cnn_b_s", 5), ("cnn_s", 3), ("mlp_tiny", 3), ("mlp_tiny", 5)])
+def test_cnn_and_mlp_forwards_statistics_gradients_and_folding_match_flax(name, m):
+    module, variables = jax_model(name, 21, m, m)
+    model, _ = create_model_from_architecture(name, (2, m, m), m * m)
+    model.load_state_dict(flax_to_state_dict(variables))
+    assert_tree_close(state_dict_to_flax(model.state_dict()), variables, 0, 0)
+    obs = boards(22, 16, m, m)
+    eval_j, train_j = jax_apply_fns(module)
+
+    # Eval mode: running statistics; the folded copy gives the same, as in flax.
+    lj, vj = eval_j(variables, jnp.asarray(obs))
+    lfj, vfj = eval_j(jax_fold(variables), jnp.asarray(obs))
+    frozen = snapshot(model)
+    assert not any(p.requires_grad for p in frozen.parameters())
+    assert getattr(frozen, "folded", False) == name.startswith("cnn")
+    for lt, vt in (eval_apply(model, torch.from_numpy(obs)), eval_apply(frozen, torch.from_numpy(obs))):
+        for want_l, want_v in ((lj, vj), (lfj, vfj)):
+            np.testing.assert_allclose(np.asarray(want_l), lt.numpy(), atol=ATOL, rtol=RTOL)
+            np.testing.assert_allclose(np.asarray(want_v), vt.numpy(), atol=ATOL, rtol=RTOL)
+    if name.startswith("cnn"):
+        folded_flax = state_dict_to_flax(frozen.state_dict())
+        assert_tree_close(folded_flax, jax.tree.map(np.asarray, jax_fold(variables)), 1e-5, 1e-5)
+
+    # Train mode: batch statistics, the running ones updated, and the gradients.
+    rng = np.random.default_rng(23)
+    r1 = rng.normal(size=(16, m * m)).astype(np.float32)
+    r2 = rng.normal(size=(16, 1)).astype(np.float32)
+
+    def loss_j(params):
+        (l, v), stats = train_j({"params": params, "batch_stats": variables["batch_stats"]},
+                                jnp.asarray(obs))
+        return jnp.sum(l * r1) + jnp.sum(v * r2), ((l, v), stats)
+
+    (_, ((lj, vj), stats_j)), grads_j = jax.value_and_grad(loss_j, has_aux=True)(variables["params"])
+    lt, vt = model(torch.from_numpy(obs), train=True)
+    np.testing.assert_allclose(np.asarray(lj), lt.detach().numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(np.asarray(vj), vt.detach().numpy(), atol=ATOL, rtol=RTOL)
+    assert_tree_close(state_dict_to_flax(model.state_dict())["batch_stats"], stats_j, 1e-5, 1e-5)
+    ((lt * torch.from_numpy(r1)).sum() + (vt * torch.from_numpy(r2)).sum()).backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    grads.update({k: torch.zeros_like(b) for k, b in model.named_buffers()})
+    got = state_dict_to_flax(grads)["params"]
+    if name == "mlp_tiny":
+        # The value head normalises one element: exactly its bias.
+        assert float(model.heads.value_head.ln1.weight.grad.abs().max()) == 0.0
+        # The policy head normalises two elements (one token, two planes): y is
+        # +-1 up to eps / (d^2 + eps), and the gradient that reaches the plane
+        # projection, and through it the trunk (the value head passes none
+        # back), is made of that remainder alone (about 1e-3 here). flax's
+        # variance, E[x^2] - E[x]^2 in f32, loses those digits; F.layer_norm
+        # keeps them. So these leaves are held against the same layers in
+        # float64, and against flax only to the size of its own error.
+        want = mlp_policy_path_gradients_float64(model, obs, r1)
+        pairs = {
+            "Dense_0": (got.pop("Dense_0"), grads_j.pop("Dense_0")),
+            "plane_proj": (got["ActorCriticHeads_0"]["policy_head"].pop("plane_proj"),
+                           grads_j["ActorCriticHeads_0"]["policy_head"].pop("plane_proj")),
+        }
+        for layer, (ours, flax_s) in pairs.items():
+            for leaf in ("kernel", "bias"):
+                np.testing.assert_allclose(ours[leaf], want[layer][leaf], atol=2e-5, rtol=1e-3)
+                np.testing.assert_allclose(ours[leaf], np.asarray(flax_s[leaf]), atol=2e-3, rtol=0)
+    assert_tree_close(got, grads_j, atol=2e-4, rtol=1e-3)
+
+
+def mlp_policy_path_gradients_float64(model, obs, r1):
+    """d(sum(logits * r1)) / d(trunk Dense, plane_proj) of ``mlp_tiny`` through
+    its policy head, every step in float64 and the variance in two passes;
+    leaves in flax's layout."""
+    def layer_norm(x, ln):
+        c = x - x.mean(-1, keepdim=True)
+        return (c * torch.rsqrt((c * c).mean(-1, keepdim=True) + ln.eps)
+                * ln.weight.detach().double() + ln.bias.detach().double())
+
+    def leaves(layer, grad):
+        return [t.detach().double().requires_grad_(grad) for t in (layer.weight, layer.bias)]
+
+    head = model.heads.policy_head
+    dense, proj = leaves(model.dense, True), leaves(head.plane_proj, True)
+    x = torch.from_numpy(obs).double().reshape(obs.shape[0], -1)
+    x = torch.relu(F.linear(x, *dense))
+    x = torch.relu(layer_norm(F.linear(x, *proj), head.ln1))
+    x = torch.relu(layer_norm(F.linear(x, *leaves(head.dense1, False)), head.ln2))
+    (F.linear(x, *leaves(head.dense2, False)) * torch.from_numpy(r1).double()).sum().backward()
+    return {name: {"kernel": w.grad.T.float().numpy(), "bias": b.grad.float().numpy()}
+            for name, (w, b) in (("Dense_0", dense), ("plane_proj", proj))}
+
+
+@pytest.mark.parametrize("route", ["folded", "infold"])
+def test_attention_fn_reaches_every_layer_and_changes_nothing_on_the_cpu(route):
+    """A transformer built with a forced route calls it in every layer; on
+    the CPU every route is the same function."""
+    from rl_selfplay_mnk_tpu_torch.ops.attention import tiny_head_attention
+
+    calls = []
+
+    def forced(q, k, v):
+        calls.append(q.shape)
+        return tiny_head_attention(q, k, v, route=route)
+
+    _, variables = jax_transformer("transformer_c_s", 31, 3, 3)
+    plain = port_transformer("transformer_c_s", variables, 3, 3)
+    model, _ = create_model_from_architecture("transformer_c_s", (2, 3, 3), 9, attention_fn=forced)
+    model.load_state_dict(plain.state_dict())
+    obs = torch.from_numpy(boards(32, 4, 3, 3))
+    want = eval_apply(plain, obs)
+    got = eval_apply(model, obs)
+    assert calls == [(4, 9, 4, 14)] * 2
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-6, rtol=1e-6)
+    assert eval_apply(snapshot(model), obs)[0].shape == (4, 9) and len(calls) == 4

@@ -29,6 +29,10 @@ from rl_selfplay_mnk_tpu_torch.models import (
 from rl_selfplay_mnk_tpu_torch.train import get_default_config, train_mnk
 from rl_selfplay_mnk_tpu_torch.utils.metrics import MetricsLogger
 
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
+
 
 def test_gae_matches_jax():
     rng = np.random.default_rng(0)
@@ -184,7 +188,8 @@ def jax_training_keys():
 def test_train_mnk_cpu_runs_logs_jax_keys_and_validates(tmp_path):
     config = get_default_config()
     config.update(mnk=(3, 3, 3), num_envs=8, n_steps=16, batch_size=32,
-                  total_environment_steps=8 * 16 * 6, validation_episodes=16)
+                  total_environment_steps=8 * 16 * 6, validation_episodes=16,
+                  export_dir=str(tmp_path / "models"))
     with MetricsLogger(run_name="cpu", config=config, out_dir=str(tmp_path)) as logger:
         summary = train_mnk(config, logger, device="cpu")
     assert summary["errors"] == [] and len(summary["iterations"]) == 6
@@ -208,7 +213,8 @@ def test_train_mnk_cpu_runs_a_transformer_with_snapshots_and_validation(tmp_path
 
     config = build_config("transformer_b_s", (3, 3, 3), 32, 8 * 16 * 2)
     assert (config["learning_rate"], config["entropy_coef"]) == (12e-4, 0.10)
-    config.update(num_envs=8, n_steps=16, validation_episodes=16, validation_interval=1)
+    config.update(num_envs=8, n_steps=16, validation_episodes=16, validation_interval=1,
+                  export_dir=str(tmp_path / "models"))
     with MetricsLogger(run_name="cpu_tfm", config=config, out_dir=str(tmp_path)) as logger:
         summary = train_mnk(config, logger, device="cpu")
     assert summary["errors"] == [] and len(summary["iterations"]) == 2

@@ -1,7 +1,10 @@
-"""Rules of the port: it never imports JAX or the JAX package, and its entry
-points run on the card unless the CPU is asked for, raising without CUDA."""
+"""Rules of the port: it never imports JAX, the JAX package, or a package the
+machine with the card does not promise (pandas, a plotting package), and its
+entry points (training, tournament, play, loading) run on the card unless
+the CPU is asked for, raising without CUDA."""
 
 import ast
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -12,8 +15,13 @@ import torch
 from rl_selfplay_mnk_tpu_torch.train import get_default_config, train_mnk
 from rl_selfplay_mnk_tpu_torch.utils.hardware import resolve_device
 
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "msgpack", "rl_selfplay_mnk_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "msgpack", "rl_selfplay_mnk_tpu",
+             "pandas", "matplotlib", "plotly")
 PORT_FILES = sorted((REPO / "rl_selfplay_mnk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -98,13 +106,54 @@ def test_kernel_wrappers_take_no_plain_route_off_the_cpu():
         lambda: attention.attention_folded_bwd(folded, folded, folded, folded),
         lambda: attention.attention_packed_fwd(packed, packed, packed, 2, 8),
         lambda: attention.attention_packed_bwd(packed, packed, packed, packed, 2, 8),
+        lambda: attention.attention_lane_slice_fwd(packed, packed, packed, 2, 8),
+        lambda: attention.attention_infold_fwd(packed, packed, packed, 2, 8),
+        lambda: attention.attention_infold_bwd(packed, packed, packed, packed, 2, 8),
         lambda: attention.attention_folded(folded, folded, folded),
         lambda: attention.attention_packed(packed, packed, packed, 2, 8),
+        lambda: attention.attention_infold(packed, packed, packed, 2, 8),
         lambda: attention.tiny_head_attention(*[torch.empty((2, 9, 2, 8), device="meta")] * 3),
         lambda: attention.tiny_head_attention(*[torch.empty((2, 9, 2, 32), device="meta")] * 3),
+        *(lambda route=route: attention.tiny_head_attention(
+            *[torch.empty((2, 9, 2, 8), device="meta")] * 3, route=route)
+          for route in attention.ROUTES),
+        lambda: attention.tiny_head_attention(
+            *[torch.empty((2, 9, 2, 8), device="meta", requires_grad=True)] * 3),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_no_gradient_route_takes_no_transpose_and_one_kernel(monkeypatch):
+    """Dh < 32 without a gradient: the forward-only kernel gets the caller's
+    own memory, reshaped, and its result goes back reshaped; no layout
+    operation copies anything and no other wrapper is called."""
+    from rl_selfplay_mnk_tpu_torch.ops import attention
+
+    seen = []
+
+    def lane_slice(q, k, v, h, dh):
+        seen.append((q, k, v, h, dh))
+        return torch.full_like(q, 7.0)
+
+    def other(*args, **kwargs):
+        raise AssertionError("the no-gradient route called another attention wrapper")
+
+    monkeypatch.setattr(attention, "attention_lane_slice_fwd", lane_slice)
+    for name in ("attention_folded", "attention_packed", "attention_infold", "attention_folded_fwd",
+                 "attention_packed_fwd", "attention_infold_fwd", "attention_packed_reference",
+                 "attention_lane_slice_reference", "attention_infold_reference"):
+        monkeypatch.setattr(attention, name, other)
+    # As the models give them: one projection's (B, L, H * Dh) viewed as heads.
+    inputs = [torch.randn(3, 9, 56).reshape(3, 9, 4, 14) for _ in range(3)]
+    with torch.no_grad():
+        out = attention.tiny_head_attention(*inputs)
+    (q, k, v, h, dh), = seen
+    assert (h, dh) == (4, 14)
+    for got, given in zip((q, k, v), inputs):
+        assert got.shape == (3, 9, 56) and got.is_contiguous()
+        assert got.data_ptr() == given.data_ptr()  # a view, not a copy
+    assert out.shape == (3, 9, 4, 14) and out.is_contiguous() and bool((out == 7.0).all())
 
 
 ATTENTION_LIBRARY_CALLS = ("scaled_dot_product_attention", "torch.compile", "bmm(", "einsum(",
@@ -152,6 +201,64 @@ def test_env_entry_points_default_to_the_card(monkeypatch, entry):
         calls[entry]()
 
 
+@pytest.mark.parametrize("entry", ["compare_models", "play", "replay", "load_any_model",
+                                   "load_policy_from_arg", "ModelInfo", "MatchRunner",
+                                   "play_batch_games"])
+def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path, capsys, entry):
+    """The tournament, play and loading entry points run on the card unless
+    the caller names the CPU, and raise without CUDA instead of using it."""
+    from rl_selfplay_mnk_tpu_torch import compare_models, play
+    from rl_selfplay_mnk_tpu_torch.compare.match_runner import GameConfig, MatchRunner, play_batch_games
+    from rl_selfplay_mnk_tpu_torch.compare.model_loader import ModelLoader
+    from rl_selfplay_mnk_tpu_torch.env import EnvConfig
+    from rl_selfplay_mnk_tpu_torch.models import create_model_from_architecture, init_network
+    from rl_selfplay_mnk_tpu_torch.selfplay import RandomPolicy
+    from rl_selfplay_mnk_tpu_torch.utils.model_export import ModelExporter, load_any_model
+
+    run = str(tmp_path / "run")
+    exporter = ModelExporter("run", base_dir=str(tmp_path))
+    for iteration in (0, 1):
+        model, arch_params = create_model_from_architecture("mlp_tiny", (2, 3, 3), 9)
+        init_network(model, torch.Generator().manual_seed(iteration))
+        exporter.export_model(model, "mlp_tiny", arch_params, iteration)
+    board = ["--board", "3", "3", "3"]
+    mnk = ["--m", "3", "--n", "3", "--k", "3"]
+    act = RandomPolicy().apply
+    record = tmp_path / "game.json"
+    record.write_text('{"mnk": [3, 3, 3], "players": ["a", "b"], "moves": [0, 3, 1, 4, 2], "winner": 0}')
+    calls = {
+        "compare_models": lambda *dev: compare_models.main(
+            [run, "--games", "2", *board, "--output", str(tmp_path / "out"),
+             *(["--device", *dev] if dev else [])]),
+        "play": lambda *dev: play.main(["--p1", run, "--p2", "random", *mnk, "--seed", "0",
+                                        *(["--device", *dev] if dev else [])]),
+        "replay": lambda *dev: play.main(["--import_game", str(record), "--delay", "0",
+                                          *(["--device", *dev] if dev else [])]) or True,
+        "load_any_model": lambda *dev: load_any_model(run, "model_00001", torch.float32, *dev),
+        "load_policy_from_arg": lambda *dev: play.load_policy_from_arg(run, (3, 3), *dev),
+        "ModelInfo": lambda *dev: ModelLoader(*dev).load_from_paths([run])[0].load_model(),
+        "MatchRunner": lambda *dev: MatchRunner(GameConfig(3, 3, 3), 0, *dev),
+        "play_batch_games": lambda *dev: play_batch_games(EnvConfig(3, 3, 3), act, act, None, None,
+                                                          4, 0, None, *dev),
+    }
+    assert calls[entry]("cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_count_params_is_the_one_entry_point_that_needs_no_card(monkeypatch):
+    """``count_params`` is exempt from "the card unless the caller asks for
+    the CPU": it runs no forward and no kernel, only reads the shapes of a
+    module it builds, so it takes no device and works where CUDA is absent."""
+    from rl_selfplay_mnk_tpu_torch import count_params
+
+    assert "device" not in inspect.signature(count_params.param_counts).parameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    counts = count_params.param_counts("transformer_b_s", 9, 9)
+    assert sum(counts.values()) > 0 and all(isinstance(c, int) for c in counts.values())
+
+
 @pytest.mark.parametrize("error,stops", [("kernel", True), ("other", False)])
 def test_train_mnk_stops_on_kernel_errors_only(monkeypatch, tmp_path, error, stops):
     """A kernel that fails to build or launch ends the run; any other error
@@ -171,7 +278,7 @@ def test_train_mnk_stops_on_kernel_errors_only(monkeypatch, tmp_path, error, sto
     monkeypatch.setattr(PPOLearner, "learn", failing_learn)
     config = get_default_config()
     config.update(mnk=(3, 3, 3), num_envs=8, n_steps=16, batch_size=32,
-                  total_environment_steps=8 * 16 * 3)
+                  total_environment_steps=8 * 16 * 3, export_dir=str(tmp_path / "models"))
     with MetricsLogger(run_name="errors", config=config, out_dir=str(tmp_path)) as logger:
         if stops:
             with pytest.raises(KernelError):

@@ -25,6 +25,10 @@ from rl_selfplay_mnk_tpu_torch.selfplay import (
     validate,
 )
 
+# One intra-op thread: the tensors here are tiny, and several test processes
+# with a thread pool each spend their time waiting on one another.
+torch.set_num_threads(1)
+
 M = N = K = 3
 E = 16
 
