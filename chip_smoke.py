@@ -16,14 +16,16 @@ Phases, in order; any failure exits non-zero:
    half-pairing) and 1 (a game of ``play``), 60 steps each; all six outputs
    bitwise equal;
 3. residual-block kernel (K2) against its plain version (f32 products, TF32
-   off) at B in {256, 384, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 and f32,
+   off) at B in {256, 384, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 (the
+   tensor-core kernel, run twice: the same bits) and f32 (the FMA kernel),
    within the stated tolerances;
 4. the seven attention kernels (K3 folded forward, K4 folded backward, K8
    packed forward, K9 packed backward; K5 lane-slice forward, K6 and K7
    in-kernel-fold forward and backward, a block per board) against their
    plain versions, bf16 and f32, at the shapes the paths give them (update
    minibatch, rollout and validation batch, a tournament half-pairing) and
-   at odd, small and wide ones, within the stated tolerances;
+   at odd, small and wide ones, within the stated tolerances; K3 in bf16
+   (the tensor-core kernel) run twice: the same bits;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -61,8 +63,10 @@ Phases, in order; any failure exits non-zero:
    plain version and a library yardstick that the port never calls (two
    ``F.conv2d`` for K2, ``F.scaled_dot_product_attention`` for the attention
    kernels: its forward, and forward plus backward beside the backward
-   kernels); each attention kernel at its update minibatch and at the
-   rollout batch of 384, K5-K7 also at a tournament half-pairing of 16; the
+   kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
+   minibatch and at the rollout batch of 384, K5-K7 also at a tournament
+   half-pairing of 16; K2 and K3 in bf16 also through their first version,
+   the FMA kernel (``first_version_ms``); the
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
    lane slice) at the 9x9 and 13x13 batches of either kind, layout
    operations included, for the dispatch (the ``threshold`` line); one
@@ -86,6 +90,8 @@ K1_ENVS = (8192, 8191, 384, 256, 16, 1)
 K1_STEPS = 60
 # Validation and rollout batches, an odd one, a tournament half-pairing, one game.
 K2_CASES = [(b, c) for b in (256, 384, 8191, 16, 1) for c in (32, 64)]
+# K2 is timed at the rollout batch, a tournament half-pairing and one game of play.
+K2_TIMED_BATCHES = (384, 16, 1)
 # |kernel - plain| <= atol + rtol * |plain|
 K2_TOL = {
     "float32": (1e-4, 1e-4),  # f32 sums over 9C <= 576 products, in another order
@@ -283,7 +289,10 @@ def phase_k2(torch, dev):
         atol, rtol = K2_TOL[name]
         for b, c in K2_CASES:
             args = k2_inputs(torch, b, c, dtype, dev)
-            got = fused_residual_block(*args, 9, 9).float()
+            got = fused_residual_block(*args, 9, 9)
+            if dtype == torch.bfloat16 and not torch.equal(got, fused_residual_block(*args, 9, 9)):
+                raise AssertionError(f"K2 {name} B={b} C={c}: two runs differ")
+            got = got.float()
             want = fused_residual_block_reference(*args, 9, 9).float()
             torch.cuda.synchronize()
             err = (got - want).abs()
@@ -291,7 +300,8 @@ def phase_k2(torch, dev):
             worst = float((err - rtol * want.abs()).max())
             ok = bool(torch.isfinite(got).all()) and worst <= atol
             print(f"K2 {name} B={b} C={c}: max_abs_err {max_err:.3e} "
-                  f"(tolerance {atol:.2e} + {rtol:.2e}*|ref|) {'ok' if ok else 'FAIL'}")
+                  f"(tolerance {atol:.2e} + {rtol:.2e}*|ref|)"
+                  f"{', same bits twice' if dtype == torch.bfloat16 else ''} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K2 {name} B={b} C={c} outside its tolerance")
             errors[(name, b, c)] = max_err
@@ -357,6 +367,10 @@ def phase_attention(torch, dev):
                 for kernel in forwards:
                     fwd, fwd_ref = attn_kernel(kernel)
                     got[kernel] = {"o": fwd(q, k, v, *extra)}
+                    if (kernel, dtype) == ("attn_folded_fwd", torch.bfloat16) and not torch.equal(
+                            got[kernel]["o"], fwd(q, k, v)):
+                        raise AssertionError(f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
+                                             "two runs differ")
                     torch.cuda.synchronize()
                     want[kernel] = {"o": fwd_ref(q, k, v, *extra)}
                 bwd, bwd_ref = attn_kernel(backward)
@@ -618,6 +632,10 @@ def time_attention(torch, dev, name, b, l, h, dh):
     extra = (h, dh) if packed else ()
     plain_iters = 10 if b > 1024 else 30
     ms, call = timed(lambda: kernel(*args, *extra), name, 50)
+    first = {}
+    if name == "attn_folded_fwd":  # the FMA kernel, K3's first version, on the same inputs
+        first["first_version_ms"], first["first_version_call_ms"] = timed(
+            lambda: kernel(*args, kernel="fma"), name, 50)
     plain, plain_call = timed(lambda: plain_version(*args, *extra), iters=plain_iters, warmup=3)
 
     lq, lk, lv, ldo = (sdpa_layout(torch, t, b, l, h, dh, packed) for t in (q, k, v, do))
@@ -637,7 +655,7 @@ def time_attention(torch, dev, name, b, l, h, dh):
     nbytes = (7 if backward else 4) * elements * 2
     ops = (10 if backward else 4) * b * h * l * l * dh
     bound_ms, bound_by = bound(nbytes, ops, "bfloat16")
-    return {"shape": [b, l, h, dh], "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+    return {"shape": [b, l, h, dh], "ms": ms, **first, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib, "call_ms": call,
             "plain_call_ms": plain_call, "library_call_ms": lib_call}
 
@@ -742,16 +760,44 @@ def tiny_head_attention_route(torch, q, k, v):
     return taken[0]
 
 
+def time_resblock(torch, F, dev, b, c=32):
+    """K2 at B boards of 9x9, C channels, bf16: the tensor-core kernel, its
+    first version (the FMA kernel) on the same inputs, the plain version,
+    cuDNN's two convolutions with the bias, ReLU and residual, and the bound."""
+    from rl_selfplay_mnk_tpu_torch.ops.resblock import (
+        fused_residual_block,
+        fused_residual_block_reference,
+    )
+
+    x, w1, b1, w2, b2 = k2_inputs(torch, b, c, torch.bfloat16, dev, seed=3)
+    ms, call = timed(lambda: fused_residual_block(x, w1, b1, w2, b2, 9, 9), "resblock")
+    first, first_call = timed(lambda: fused_residual_block(x, w1, b1, w2, b2, 9, 9, kernel="fma"),
+                              "resblock")
+    plain, plain_call = timed(lambda: fused_residual_block_reference(x, w1, b1, w2, b2, 9, 9), iters=50)
+    cw1 = w1.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+    cw2 = w2.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+    cb1, cb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    x_nchw = x.view(b, 9, 9, c).permute(0, 3, 1, 2)
+
+    def library_block():
+        h = torch.relu(F.conv2d(x_nchw, cw1, cb1, padding=1))
+        return torch.relu(F.conv2d(h, cw2, cb2, padding=1) + x_nchw)
+
+    lib, lib_call = timed(library_block)
+    nbytes = 2 * x.numel() * 2 + 2 * w1.numel() * 2 + 2 * c * 4
+    bound_ms, bound_by = bound(nbytes, 2 * (2 * b * 81 * 9 * c * c), "bfloat16")
+    return {"shape": [b, 81, c], "ms": ms, "first_version_ms": first, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib, "call_ms": call,
+            "first_version_call_ms": first_call, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call}
+
+
 def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
     import torch.nn.functional as F
 
     from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
     from rl_selfplay_mnk_tpu_torch.env.lines import num_lines
     from rl_selfplay_mnk_tpu_torch.ops.env_step import fused_step, fused_step_reference
-    from rl_selfplay_mnk_tpu_torch.ops.resblock import (
-        fused_residual_block,
-        fused_residual_block_reference,
-    )
 
     # K1 at the main path's shape: 384 envs mid-game on 9x9x5.
     rng = np.random.default_rng(2)
@@ -771,27 +817,7 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
     k1_ops = e * (2 * mn + lines * 5 + 8)  # placement, line sums, flags
     k1_bound, k1_by = bound(k1_bytes, k1_ops, "float32")
 
-    # K2 at the main path's shape: 384 boards, 9x9, C=32, bf16.
-    b, c = 384, 32
-    x, w1, b1, w2, b2 = k2_inputs(torch, b, c, torch.bfloat16, dev, seed=3)
-    k2_ms, k2_call = timed(lambda: fused_residual_block(x, w1, b1, w2, b2, 9, 9), "resblock_kernel")
-    k2_plain, k2_plain_call = timed(
-        lambda: fused_residual_block_reference(x, w1, b1, w2, b2, 9, 9), iters=50
-    )
-    cw1 = w1.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
-    cw2 = w2.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
-    cb1, cb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-    x_nchw = x.view(b, 9, 9, c).permute(0, 3, 1, 2)
-
-    def library_block():
-        h = torch.relu(F.conv2d(x_nchw, cw1, cb1, padding=1))
-        return torch.relu(F.conv2d(h, cw2, cb2, padding=1) + x_nchw)
-
-    k2_lib, k2_lib_call = timed(library_block)
-    k2_bytes = 2 * x.numel() * 2 + 2 * w1.numel() * 2 + 2 * c * 4
-    k2_ops = 2 * (2 * b * 81 * 9 * c * c)
-    k2_bound, k2_by = bound(k2_bytes, k2_ops, "bfloat16")
-
+    k2 = {b: time_resblock(torch, F, dev, b) for b in K2_TIMED_BATCHES}
     kernels = [
         {
             "name": "env_step",
@@ -818,26 +844,25 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
             "launches": launches["resblock"][0],
             "launches_on": launches["resblock"][1],
             "max_abs_err": k2_errors[("bfloat16", 384, 32)],
-            "ms": k2_ms,
-            "plain_ms": k2_plain,
-            "bound_ms": k2_bound,
-            "bound_by": k2_by,
-            "library_ms": k2_lib,
-            "call_ms": k2_call,
-            "plain_call_ms": k2_plain_call,
-            "library_call_ms": k2_lib_call,
+            **{key: value for key, value in k2[384].items() if key != "shape"},
+            "library": "two F.conv2d (cuDNN), with the bias, ReLU and residual",
+            "shape": k2[384]["shape"],
+            "at_tournament_batch": k2[16],
+            "at_play_batch": k2[1],
         },
     ]
     kernels += attention_kernel_records(torch, dev, launches, attn_errors)
     for k in kernels:
-        print(f"timing {k['name']}: device {k['ms']:.5f} ms, per call {k['call_ms']:.5f} ms; "
+        first = f" (first version {k['first_version_ms']:.5f})" if "first_version_ms" in k else ""
+        print(f"timing {k['name']}: device {k['ms']:.5f} ms{first}, per call {k['call_ms']:.5f} ms; "
               f"plain device {k['plain_ms']:.5f} ms, per call {k['plain_call_ms']:.5f} ms; "
               f"library {k['library_ms']} / {k['library_call_ms']} ms; "
               f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}")
-        for key in ("at_rollout_batch", "at_tournament_batch"):
+        for key in ("at_rollout_batch", "at_tournament_batch", "at_play_batch"):
             r = k.get(key)
             if r:
-                print(f"  at (B, L, H, Dh)={tuple(r['shape'])}: device {r['ms']:.5f} ms, per call "
+                first = f" (first version {r['first_version_ms']:.5f})" if "first_version_ms" in r else ""
+                print(f"  at {tuple(r['shape'])}: device {r['ms']:.5f} ms{first}, per call "
                       f"{r['call_ms']:.5f} ms; plain device {r['plain_ms']:.5f} ms; library "
                       f"{r['library_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
     return kernels

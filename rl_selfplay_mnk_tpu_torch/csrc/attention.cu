@@ -24,10 +24,32 @@
 // operations, a backward call 7*B*L*D elements and 10*B*H*L*L*Dh operations.
 // At the trainer's shapes (B = 8192, L = 81, H = 4, Dh = 14, and B = 4096,
 // L = 169, H = 2, Dh = 64, bf16) the memory time exceeds the tensor cores'
-// time, so bytes bound the ideal. These versions do their products with FMA
-// on the CUDA cores out of shared memory, and that is what bounds them.
+// time, so bytes bound the ideal: 0.089 ms for K3 at the first shape.
 //
-// Design: one block per (board, head). The head's q, k, v (and dO) sit in
+// The folded forward in bf16 (attn_folded_fwd_mma, below) does both
+// products on the tensor cores; even padded to 16 (Dh) and 96 (L) they take
+// about 20 us at the bf16 peak against the 89 us of bytes. What is left
+// besides the bytes is the f32 softmax on the score tiles in registers, and
+// the design keeps that to one pass: a block takes up to four consecutive
+// heads, reads their contiguous span with 16-byte loads, four in flight a
+// thread (single elements at its two ends), and scatters it into bf16
+// [Dh_pad][L_pad + 8] slabs, zero padded (the odd number of 16-byte words
+// keeps ldmatrix free of bank conflicts). The kernel is compiled for each
+// padded size (L_pad a multiple of 16, Dh_pad 16, 32 or 64), so its loops
+// carry no bounds. A warp owns 16 query rows: Q's A fragments and K^T's B
+// fragments come from ldmatrix.trans of the [d][token] rows, the 16 x L_pad
+// scores stay in registers, max and sum go by quad shuffles, p = exp(x -
+// max) * (1 / sum) in f32 is rounded to bf16 and becomes the A fragment of
+// P.V straight from registers, V's B fragments come from a plain ldmatrix.
+// O goes back over the warp's own columns of q's slab and leaves as the
+// span it came in. Padded key columns get x = -inf (p = 0); padded query
+// rows (q zero) are computed and never stored.
+//
+// The other kernels here, and the folded forward in f32 (a tensor-core
+// product of f32 data would round to TF32), do their products with FMA on
+// the CUDA cores out of shared memory, and that is what bounds them.
+//
+// Design of those: one block per (board, head). The head's q, k, v (and dO) sit in
 // shared memory as f32 rows whose stride is a multiple of four floats and an
 // odd number of 16-byte words, so a lane per key reads four channels at a
 // time without bank conflicts. A warp owns four query rows at a time: each
@@ -48,6 +70,7 @@
 // wrapper (ops/attention.py) raises when it is not 0.
 
 #include "attn_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -543,6 +566,255 @@ int packed_bwd(const void* q, const void* k, const void* v, const void* g, void*
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The folded forward in bf16 on the tensor cores (K3's bf16 path)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;       // warps of a block of attn_folded_fwd_mma
+constexpr int kMmaMaxHeads = 4;    // heads a block of it takes at most
+
+// The kernel is compiled for these counts of 16-token tiles and 16-channel
+// tiles; a head is padded with zeros up to the next one.
+__host__ __device__ inline int key_tiles(int L) {
+    const int kt = (L + 15) / 16;
+    return kt <= 4 ? kt : kt <= 6 ? 6 : kt <= 8 ? 8 : kt <= 11 ? 11 : 12;
+}
+__host__ __device__ inline int channel_tiles(int dh) {
+    const int dk = (dh + 15) / 16;
+    return dk <= 2 ? dk : 4;
+}
+
+// Shared memory of one block: `heads` heads' q, k and v as bf16 [dpad][ld],
+// dpad = 16 channel_tiles(Dh), ld = 16 key_tiles(L) + 8 (an odd number of
+// 16-byte words), all zero outside [Dh][L].
+__host__ __device__ inline size_t folded_mma_smem_bytes(int L, int dh, int heads) {
+    return static_cast<size_t>(heads) * 3 * 16 * channel_tiles(dh)
+           * padded_row_elems(16 * key_tiles(L)) * sizeof(bf16);
+}
+
+// Where element e of a span of consecutive heads' (Dh, L) slabs sits in the
+// heads' [dpad][ld] shared slabs, without a branch.
+struct SlabMap {
+    FastDiv per_head, per_row;  // by Dh * L, by L
+    int head_stride, ld;
+    __device__ __forceinline__ int operator()(uint32_t e) const {
+        const uint32_t h = per_head(e), r = e - h * per_head.d;
+        const uint32_t d = per_row(r);
+        return h * head_stride + d * ld + (r - d * per_row.d);
+    }
+};
+
+// Device span (n elements) <-> the heads' shared slabs. 16-byte accesses
+// where the span is aligned, single elements at its two ends; a thread
+// starts kChunksInFlight loads before it scatters the first.
+constexpr int kChunksInFlight = 4;
+
+template <bool kLoad>
+__device__ __forceinline__ void move_span(bf16* __restrict__ dev, bf16* smem, int n, SlabMap at) {
+    const int misalign = static_cast<int>((reinterpret_cast<uintptr_t>(dev) & 15) / sizeof(bf16));
+    const int lead = min(n, (8 - misalign) & 7);
+    const int chunks = (n - lead) / 8;
+    const int tail = lead + 8 * chunks;
+    for (int e = threadIdx.x; e < lead + (n - tail); e += blockDim.x) {
+        const int i = e < lead ? e : tail + (e - lead);
+        if (kLoad) smem[at(i)] = dev[i];
+        else dev[i] = smem[at(i)];
+    }
+    uint4* dev_chunks = reinterpret_cast<uint4*>(dev + lead);
+    for (int c0 = threadIdx.x; c0 < chunks; c0 += kChunksInFlight * blockDim.x) {
+        uint4 raw[kChunksInFlight];
+        if (kLoad) {
+#pragma unroll
+            for (int u = 0; u < kChunksInFlight; ++u) {
+                const int c = c0 + u * blockDim.x;
+                if (c < chunks) raw[u] = dev_chunks[c];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kChunksInFlight; ++u) {
+            const int c = c0 + u * blockDim.x;
+            if (c < chunks) {
+                bf16* v = reinterpret_cast<bf16*>(&raw[u]);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const int s = at(lead + 8 * c + e);
+                    if (kLoad) smem[s] = v[e];
+                    else v[e] = smem[s];
+                }
+                if (!kLoad) dev_chunks[c] = raw[u];
+            }
+        }
+    }
+}
+
+// kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:
+// 16-channel tiles (key_tiles, channel_tiles).
+template <int kKT, int kDK>
+__global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_folded_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int BH, int L, int dh, int heads, float scale)
+{
+    constexpr int kLd = 16 * kKT + 8;       // padded_row_elems(16 kKT)
+    constexpr int kSlab = 16 * kDK * kLd;   // one tensor of one head
+    constexpr int kHeadStride = 3 * kSlab;  // a head's q, k, v slabs, in that order
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+    const int head0 = blockIdx.x * heads;
+    const int nh = min(heads, BH - head0);
+    const int n = nh * dh * L;
+    const size_t span0 = static_cast<size_t>(head0) * dh * L;
+    const SlabMap at{FastDiv(dh * L), FastDiv(L), kHeadStride, kLd};
+
+    for (int i = threadIdx.x; i < heads * kHeadStride / 8; i += blockDim.x)
+        reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    move_span<true>(const_cast<bf16*>(q) + span0, smem, n, at);
+    move_span<true>(const_cast<bf16*>(k) + span0, smem + kSlab, n, at);
+    move_span<true>(const_cast<bf16*>(v) + span0, smem + 2 * kSlab, n, at);
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = frag_row(lane), tc = frag_col(lane);
+    // This lane's row of an ldmatrix.x4: 8 rows of one tile, two tiles down
+    // (rows + 8) and two across (16 bytes further).
+    const int r8 = lane & 7, down = (lane >> 3) & 1, across = lane >> 4;
+    const int live_cols = L - tc;  // key column 8j + tc + c is a token iff 8j + c < live_cols
+
+    for (int item = warp; item < nh * kKT; item += kMmaWarps) {
+        const int hl = item / kKT;
+        const int i0 = (item - hl * kKT) * 16;  // this warp's 16 query rows
+        bf16* qs = smem + hl * kHeadStride;
+        const uint32_t qs_at = shared_address(qs);
+        const uint32_t ks_at = qs_at + kSlab * 2, vs_at = qs_at + 2 * kSlab * 2;
+
+        // A = Q (rows i, depth d) from q's [d][i] rows: ldmatrix.trans.
+        uint32_t qa[kDK][4];
+#pragma unroll
+        for (int kk = 0; kk < kDK; ++kk)
+            ldmatrix_x4_trans(qa[kk], qs_at + ((kk * 16 + across * 8 + r8) * kLd + i0 + down * 8) * 2);
+
+        // S = Q . K^T: B = K^T (depth d, columns j) from k's [d][j] rows: ldmatrix.trans.
+        float s[2 * kKT][4];
+#pragma unroll
+        for (int j = 0; j < 2 * kKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4_trans(b, ks_at + ((kk * 16 + down * 8 + r8) * kLd + jt * 16 + across * 8) * 2);
+                mma_bf16_16816(s[2 * jt], qa[kk], b[0], b[1]);
+                mma_bf16_16816(s[2 * jt + 1], qa[kk], b[2], b[3]);
+            }
+        }
+
+        // Softmax of rows i0 + g (s[.][0..1]) and i0 + g + 8 (s[.][2..3]) in
+        // f32, the arithmetic of softmax_rows: x = s * scale, p = exp(x - max)
+        // * (1 / sum). Key columns >= L get x = -inf, so p = 0. Query rows >=
+        // L (q zero there) are computed like the others and never stored.
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 2 * kKT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = j * 8 + (e & 1) < live_cols ? __fmul_rn(s[j][e], scale) : -INFINITY;
+                mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+            }
+        }
+        float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        }
+#pragma unroll
+        for (int j = 0; j < 2 * kKT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = expf(__fsub_rn(s[j][e], mx[e >> 1]));
+                sum[e >> 1] += s[j][e];
+            }
+        }
+        float rinv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+            sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+            rinv[r] = __frcp_rn(sum[r]);
+        }
+
+        // O = round(P) . V: the rounded probabilities of keys 16jt .. 16jt+15
+        // are the A fragment, straight from registers; B = V (depth j,
+        // columns d) from v's [d][j] rows: plain ldmatrix.
+        float oacc[2 * kDK][4];
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oacc[u][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+            const int lo = 2 * jt, hi = 2 * jt + 1;
+            const uint32_t pa[4] = {
+                pack_bf16(__fmul_rn(s[lo][0], rinv[0]), __fmul_rn(s[lo][1], rinv[0])),
+                pack_bf16(__fmul_rn(s[lo][2], rinv[1]), __fmul_rn(s[lo][3], rinv[1])),
+                pack_bf16(__fmul_rn(s[hi][0], rinv[0]), __fmul_rn(s[hi][1], rinv[0])),
+                pack_bf16(__fmul_rn(s[hi][2], rinv[1]), __fmul_rn(s[hi][3], rinv[1])),
+            };
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4(b, vs_at + ((kk * 16 + across * 8 + r8) * kLd + jt * 16 + down * 8) * 2);
+                mma_bf16_16816(oacc[2 * kk], pa, b[0], b[1]);
+                mma_bf16_16816(oacc[2 * kk + 1], pa, b[2], b[3]);
+            }
+        }
+
+        // O's rows go into q's columns i0 .. i0+15, which only this warp reads
+        // (its A fragments are already in registers): o's [d][i] layout.
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u) {
+            const int d = u * 8 + tc;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = i0 + g + 8 * r;
+                if (i < L) {
+                    qs[d * kLd + i] = __float2bfloat16(oacc[u][2 * r]);
+                    qs[(d + 1) * kLd + i] = __float2bfloat16(oacc[u][2 * r + 1]);
+                }
+            }
+        }
+    }
+    __syncthreads();
+    move_span<false>(o + span0, smem, n, at);
+}
+
+template <int kKT, int kDK>
+int folded_fwd_mma(const void* q, const void* k, const void* v, void* o, int BH, int dh, int L,
+                   int heads, cudaStream_t stream) {
+    static bool allowed = false;
+    const cudaError_t err = allow_large_smem(attn_folded_fwd_mma<kKT, kDK>, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_folded_fwd_mma<kKT, kDK><<<(BH + heads - 1) / heads, kMmaWarps * 32,
+                                    folded_mma_smem_bytes(L, dh, heads), stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), BH, L, dh, heads, 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKT>
+int folded_fwd_mma_dk(const void* q, const void* k, const void* v, void* o, int BH, int dh, int L,
+                      int heads, cudaStream_t stream) {
+    switch (channel_tiles(dh)) {
+        case 1: return folded_fwd_mma<kKT, 1>(q, k, v, o, BH, dh, L, heads, stream);
+        case 2: return folded_fwd_mma<kKT, 2>(q, k, v, o, BH, dh, L, heads, stream);
+        default: return folded_fwd_mma<kKT, 4>(q, k, v, o, BH, dh, L, heads, stream);
+    }
+}
+
 }  // namespace
 
 // Shared memory one block needs, in bytes: the wrapper holds it against the
@@ -595,4 +867,30 @@ extern "C" int attn_packed_bwd_launch(int is_bf16, const void* q, const void* k,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return is_bf16 ? packed_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, B, L, H, dh, threads, s)
                    : packed_bwd<float>(q, k, v, g, dq, dk, dv, B, L, H, dh, threads, s);
+}
+
+// The folded forward on the tensor cores, bf16 only (is_bf16 = 1): `heads`
+// consecutive heads a block (at most 4), four warps, a warp per 16 query
+// rows of a head.
+extern "C" size_t attn_folded_fwd_mma_smem_bytes(int L, int dh, int heads) {
+    return folded_mma_smem_bytes(L, dh, heads);
+}
+
+extern "C" int attn_folded_fwd_mma_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                          void* o, int BH, int dh, int L, int heads, void* stream) {
+    if (BH == 0) return 0;
+    if (!is_bf16 || !shape_ok(BH, L, dh, kMmaWarps * 32, kMmaWarps * 32) || heads < 1
+        || heads > kMmaMaxHeads)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (key_tiles(L)) {
+        case 1: return folded_fwd_mma_dk<1>(q, k, v, o, BH, dh, L, heads, s);
+        case 2: return folded_fwd_mma_dk<2>(q, k, v, o, BH, dh, L, heads, s);
+        case 3: return folded_fwd_mma_dk<3>(q, k, v, o, BH, dh, L, heads, s);
+        case 4: return folded_fwd_mma_dk<4>(q, k, v, o, BH, dh, L, heads, s);
+        case 6: return folded_fwd_mma_dk<6>(q, k, v, o, BH, dh, L, heads, s);
+        case 8: return folded_fwd_mma_dk<8>(q, k, v, o, BH, dh, L, heads, s);
+        case 11: return folded_fwd_mma_dk<11>(q, k, v, o, BH, dh, L, heads, s);
+        default: return folded_fwd_mma_dk<12>(q, k, v, o, BH, dh, L, heads, s);
+    }
 }

@@ -27,10 +27,13 @@ Each pair is a ``torch.autograd.Function`` that saves q, k, v only and
 recomputes the probabilities in its backward; the incoming gradient is cast
 to q's dtype first.
 
-On the H100 both directions are bound by bytes at the models' shapes; the
-kernels (``csrc/attention.cu``, ``csrc/attention_board.cu``) hold a head or a
-board in shared memory and do their products with FMA on the CUDA cores,
-which bound them for now.
+On the H100 both directions are bound by bytes at the models' shapes. The
+bf16 folded forward (K3, ``folded_fwd_kernel_for``) does its two products
+on the tensor cores (``mma.sync``), a warp per 16 query rows with the scores
+and probabilities in registers. The other kernels, and K3 in f32, hold a
+head or a board in shared memory (``csrc/attention.cu``,
+``csrc/attention_board.cu``) and do their products with FMA on the CUDA
+cores, which bound them for now.
 
 The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
 ``attention_packed_fwd``, ``attention_packed_bwd``,
@@ -177,13 +180,49 @@ def _lib():
     lib.attn_max_threads.argtypes = [i]
     lib.attn_max_threads.restype = i
     lib.attn_folded_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 4 + [p]
+    lib.attn_folded_fwd_mma_launch.argtypes = [i] + [p] * 4 + [i] * 4 + [p]
+    lib.attn_folded_fwd_mma_smem_bytes.argtypes = [i] * 3
+    lib.attn_folded_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     lib.attn_folded_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 4 + [p]
     lib.attn_packed_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
     lib.attn_packed_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
-    for fn in (lib.attn_folded_fwd_launch, lib.attn_folded_bwd_launch,
+    for fn in (lib.attn_folded_fwd_launch, lib.attn_folded_bwd_launch, lib.attn_folded_fwd_mma_launch,
                lib.attn_packed_fwd_launch, lib.attn_packed_bwd_launch):
         fn.restype = i
     return lib
+
+
+def folded_fwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K3 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"attention_folded_fwd: unsupported dtype {dtype}")
+
+
+_MMA_MAX_HEADS = 4  # csrc/attention.cu kMmaMaxHeads
+_MMA_HEADS_SMEM = 64 * 1024  # a block of the tensor-core K3 takes heads up to this much
+
+
+@functools.lru_cache(maxsize=None)
+def _folded_mma_heads(l: int, dh: int, device: torch.device) -> int:
+    """Heads a block of the tensor-core K3 takes: up to four, while their
+    q, k and v fit in 64 KiB of shared memory (three or more blocks an SM),
+    and one where a single head needs more."""
+    lib = _lib()
+    if l > lib.attn_max_tokens() or dh > lib.attn_max_head_dim():
+        raise KernelError(
+            f"attention: L={l}, Dh={dh} is beyond the kernel's "
+            f"L <= {lib.attn_max_tokens()}, Dh <= {lib.attn_max_head_dim()}"
+        )
+    one = lib.attn_folded_fwd_mma_smem_bytes(l, dh, 1)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if one > limit:
+        raise KernelError(f"attention forward: L={l}, Dh={dh} needs {one} bytes of shared "
+                          f"memory per block, the card allows {limit}")
+    return max(1, min(_MMA_MAX_HEADS, _MMA_HEADS_SMEM // one))
 
 
 @functools.lru_cache(maxsize=None)
@@ -325,13 +364,25 @@ def _packed_dims(name: str, q: torch.Tensor, h: int, dh: int) -> tuple:
     return q.shape[0], q.shape[1], h, dh
 
 
-def attention_folded_fwd(q, k, v):
-    """K3: q, k, v (BH, Dh, L), bf16 or f32 -> o (BH, Dh, L)."""
+def attention_folded_fwd(q, k, v, kernel: str | None = None):
+    """K3: q, k, v (BH, Dh, L), bf16 or f32 -> o (BH, Dh, L).
+
+    On the card it launches ``folded_fwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
+    which chip_smoke.py times beside the tensor-core kernel)."""
     if not _on_card("attention_folded_fwd", q):
         return attention_folded_reference(q, k, v)
     bh, dh, l = _folded_dims("attention_folded_fwd", q)
-    return _launch(attention_folded_fwd, "attn_folded_fwd_launch", False,
-                   {"q": q, "k": k, "v": v}, l, dh, (bh, dh, l))[0]
+    tensors = {"q": q, "k": k, "v": v}
+    default = folded_fwd_kernel_for(q.dtype)
+    if kernel not in (None, default, "fma"):
+        raise ValueError(f"attention_folded_fwd: no {kernel!r} kernel for {q.dtype}")
+    if (kernel or default) == "fma":
+        return _launch(attention_folded_fwd, "attn_folded_fwd_launch", False, tensors, l, dh,
+                       (bh, dh, l))[0]
+    _checked("attention_folded_fwd", tensors)
+    return _run(attention_folded_fwd, _lib().attn_folded_fwd_mma_launch, tensors, 1,
+                (bh, dh, l, _folded_mma_heads(l, dh, q.device)))[0]
 
 
 def attention_folded_bwd(q, k, v, do):

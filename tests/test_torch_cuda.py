@@ -48,18 +48,70 @@ def test_env_step_kernel_bitwise(device, mnk, e):
         mask = got[3].cpu().numpy()
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0**-6)])
-@pytest.mark.parametrize("b,m,c", [(384, 9, 32), (7, 9, 80), (5, 9, 128), (3, 13, 64)])
-def test_resblock_kernel_within_tolerance(device, dtype, tol, b, m, c):
+def resblock_inputs(device, dtype, b, m, c):
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.relu(torch.randn(b, m * m, c, device=device, generator=g)).to(dtype)
     w1 = (torch.randn(9 * c, c, device=device, generator=g) * 0.1).to(dtype)
     w2 = (torch.randn(9 * c, c, device=device, generator=g) * 0.1).to(dtype)
     b1 = torch.randn(c, device=device, generator=g) * 0.1
     b2 = torch.randn(c, device=device, generator=g) * 0.1
-    got = fused_residual_block(x, w1, b1, w2, b2, m, m).float()
-    want = fused_residual_block_reference(x, w1, b1, w2, b2, m, m).float()
+    return x, w1, b1, w2, b2
+
+
+# The registry's widths: 9x9 C = 32 at the rollout batch, a tournament
+# half-pairing and one game of play; C = 80 and 128 on 9x9 and C = 64 on
+# 13x13, whose weights the tensor-core kernel walks in output-channel slices
+# or holds whole next to 13x13 activations.
+RESBLOCK_CASES = [(384, 9, 32), (16, 9, 32), (1, 9, 32), (7, 9, 80), (5, 9, 128), (3, 13, 64)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0**-6)])
+@pytest.mark.parametrize("b,m,c", RESBLOCK_CASES)
+def test_resblock_kernel_within_tolerance(device, dtype, tol, b, m, c):
+    args = resblock_inputs(device, dtype, b, m, c)
+    got = fused_residual_block(*args, m, m).float()
+    want = fused_residual_block_reference(*args, m, m).float()
     assert ((got - want).abs() <= tol + tol * want.abs()).all()
+
+
+@pytest.mark.parametrize("b,m,c", RESBLOCK_CASES + [(8191, 9, 32), (16, 13, 128)])
+def test_resblock_tensor_core_kernel_same_bits_twice(device, b, m, c):
+    """bf16 takes the tensor-core kernel; two runs give the same bits, its
+    shared memory is what the plan counted, and the first version (FMA)
+    still agrees with the plain version on bf16."""
+    from rl_selfplay_mnk_tpu_torch.ops import resblock
+
+    args = resblock_inputs(device, torch.bfloat16, b, m, c)
+    plan = resblock._card_mma_plan(b, c, m, m, device)  # raises if the kernel counts otherwise
+    assert plan.boards >= 1 and plan.threads % 32 == 0
+    first = fused_residual_block(*args, m, m)
+    assert torch.equal(first, fused_residual_block(*args, m, m))
+    fma = fused_residual_block(*args, m, m, kernel="fma").float()
+    want = fused_residual_block_reference(*args, m, m).float()
+    assert ((fma - want).abs() <= 2.0**-6 * (1 + want.abs())).all()
+
+
+class EntrySpy:
+    """A kernel library that records which launch entries are called."""
+
+    def __init__(self, lib):
+        self.lib, self.launched = lib, []
+
+    def __getattr__(self, name):
+        if name.endswith("_launch"):
+            self.launched.append(name)
+        return getattr(self.lib, name)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "resblock_mma_launch"),
+                                         (torch.float32, "resblock_launch")])
+def test_resblock_dtype_picks_its_kernel(device, monkeypatch, dtype, entry):
+    from rl_selfplay_mnk_tpu_torch.ops import resblock
+
+    spy = EntrySpy(resblock._lib())
+    monkeypatch.setattr(resblock, "_lib", lambda: spy)
+    fused_residual_block(*resblock_inputs(device, dtype, 16, 9, 32), 9, 9)
+    assert spy.launched == [entry]
 
 
 # Attention kernels against their plain versions.
@@ -155,6 +207,34 @@ def test_board_attention_kernels_within_tolerance(device, dtype, b, l, h, dh):
         assert_attn_close(g, w, dtype, name)
     again = attn.attention_infold_bwd(q, k, v, do, h, dh)
     assert all(torch.equal(a, g) for a, g in zip(again, grads)), "the backward is not deterministic"
+
+
+# The tensor-core folded forward (K3 in bf16): every token count of the
+# registry's boards up to the kernel's limit, every head width it takes, a
+# count of heads that leaves the last block of four short.
+@pytest.mark.parametrize("l", [9, 81, 169, 192])
+@pytest.mark.parametrize("dh", [8, 12, 14, 32, 64])
+def test_folded_forward_tensor_cores_within_tolerance(device, l, dh):
+    bh = 4 * 5 + 3
+    q, k, v = attn_inputs(device, torch.bfloat16, bh, l, 1, dh, packed=False, n=3)
+    before = attn.attention_folded_fwd.launches
+    got = attn.attention_folded_fwd(q, k, v)
+    again = attn.attention_folded_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.attention_folded_fwd.launches == before + 2
+    assert torch.equal(got, again), "the tensor-core forward is not deterministic"
+    assert_attn_close(got, attn.attention_folded_reference(q, k, v), torch.bfloat16, "o")
+    fma = attn.attention_folded_fwd(q, k, v, kernel="fma")
+    assert_attn_close(fma, attn.attention_folded_reference(q, k, v), torch.bfloat16, "fma o")
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "attn_folded_fwd_mma_launch"),
+                                         (torch.float32, "attn_folded_fwd_launch")])
+def test_folded_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry):
+    spy = EntrySpy(attn._lib())
+    monkeypatch.setattr(attn, "_lib", lambda: spy)
+    attn.attention_folded_fwd(*attn_inputs(device, dtype, 8, 81, 4, 14, packed=False, n=3))
+    assert spy.launched == [entry]
 
 
 def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):

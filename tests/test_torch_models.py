@@ -243,6 +243,65 @@ def test_plain_resblock_matches_unfolded_conv_block():
             np.testing.assert_allclose(want.numpy(), got.numpy(), atol=ATOL, rtol=RTOL)
 
 
+# The H100's limits as PyTorch reports them: SMs and shared memory per block
+# with the opt-in.
+H100 = {"sms": 132, "smem_per_block": 232448}
+
+
+@pytest.mark.parametrize("batch,c,m,boards,slice_channels,whole,threads", [
+    (16, 32, 9, 1, 32, True, 192),      # a tournament half-pairing: 16 blocks on 16 SMs
+    (1, 32, 9, 1, 32, True, 192),       # one game of play
+    (132, 32, 9, 1, 32, True, 192),     # no more boards than SMs: still one a block
+    (384, 32, 9, 3, 32, True, 512),     # the rollout: ceil(384 / 132) boards, 16 warps
+    (8191, 32, 9, 8, 32, True, 512),    # at most eight a block; warps walk 41 tiles
+    (256, 64, 9, 1, 64, True, 192),     # two boards would not fit next to both weights
+    (7, 80, 9, 1, 80, False, 192),      # weights of one conv at a time
+    (5, 128, 9, 1, 32, False, 192),     # slices of 32 output channels
+    (3, 64, 13, 1, 64, True, 352),      # 11 position tiles of 16
+    (16, 128, 13, 1, 32, False, 352),
+])
+def test_resblock_tensor_core_plan_on_an_h100(batch, c, m, boards, slice_channels, whole, threads):
+    from rl_selfplay_mnk_tpu_torch.ops.resblock import mma_block_plan, mma_smem_bytes
+
+    plan = mma_block_plan(batch, c, m, m, **H100)
+    assert (plan.boards, plan.slice_channels, plan.whole_weights, plan.threads) == (
+        boards, slice_channels, whole, threads)
+    assert plan.smem_bytes == mma_smem_bytes(c, boards, m, m, slice_channels, whole)
+    assert plan.smem_bytes <= H100["smem_per_block"]
+    assert c % plan.slice_channels == 0 and plan.slice_channels % 16 == 0
+
+
+def test_resblock_tensor_core_plan_follows_the_cards_limits():
+    from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
+    from rl_selfplay_mnk_tpu_torch.ops.resblock import mma_block_plan
+
+    # A card with 60 KiB a block: 9x9 C = 32 no longer holds both convs' weights.
+    small = mma_block_plan(16, 32, 9, 9, sms=132, smem_per_block=61440)
+    assert (small.boards, small.slice_channels, small.whole_weights) == (1, 32, False)
+    # Fewer SMs: 384 boards come six a block.
+    few = mma_block_plan(384, 32, 9, 9, sms=64, smem_per_block=232448)
+    assert few.boards == 6 and few.threads == 512
+    with pytest.raises(KernelError, match="shared memory"):
+        mma_block_plan(1, 128, 13, 13, sms=132, smem_per_block=65536)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mma_block_plan(1, 24, 9, 9, **H100)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_dtype_picks_tensor_cores_for_bf16_and_fma_for_f32(dtype, kernel):
+    """K2 and K3 launch the tensor-core kernel for bf16 and the FMA kernel
+    (the first version) for f32, whose products on the tensor cores would
+    round to TF32."""
+    from rl_selfplay_mnk_tpu_torch.ops.attention import folded_fwd_kernel_for
+    from rl_selfplay_mnk_tpu_torch.ops.resblock import kernel_for
+
+    assert kernel_for(dtype) == kernel
+    assert folded_fwd_kernel_for(dtype) == kernel
+    for pick in (kernel_for, folded_fwd_kernel_for):
+        with pytest.raises(ValueError, match="unsupported dtype"):
+            pick(torch.float16)
+
+
 # ---------------------------------------------------------------------------
 # transformer families
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ the CPU is asked for, raising without CUDA."""
 import ast
 import inspect
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -287,3 +288,35 @@ def test_train_mnk_stops_on_kernel_errors_only(monkeypatch, tmp_path, error, sto
             summary = train_mnk(config, logger, device="cpu")
             assert len(summary["errors"]) == 3
     assert len(calls) == (1 if stops else 3)
+
+
+CSRC = REPO / "rl_selfplay_mnk_tpu_torch" / "csrc"
+# What the tensor-core kernels may include: the CUDA runtime's own headers and the port's.
+KERNEL_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "attn_common.cuh",
+                   "mma_common.cuh"}
+LIBRARY_KERNEL_NAMES = ("cublas", "cudnn", "cutlass", "cute::", "cufft", "cusparse", "thrust",
+                        "cub::", "torch", "aten", "c10", "scaled_dot_product", "flash")
+
+
+def code_of(path):
+    """A CUDA source with its comments taken out."""
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+@pytest.mark.parametrize("name", ["resblock.cu", "attention.cu", "mma_common.cuh"])
+def test_tensor_core_sources_call_no_library_kernel(name):
+    """The bf16 K2 and K3 compute inside their own bodies: no header beyond
+    CUDA's runtime ones and the port's, no library GEMM, convolution or
+    attention, and the products are the port's own ``mma.sync`` wrapper."""
+    code = code_of(CSRC / name)
+    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', code))
+    assert includes <= KERNEL_INCLUDES, f"{name} includes {sorted(includes - KERNEL_INCLUDES)}"
+    lowered = code.lower()
+    for library in LIBRARY_KERNEL_NAMES:
+        assert library not in lowered, f"{name} names {library!r}"
+    if name.endswith(".cu"):
+        assert '#include "mma_common.cuh"' in code
+        assert code.count("mma_bf16_16816(") >= 2 and "ldmatrix_x4" in code
+    else:
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
