@@ -24,8 +24,8 @@ Phases, in order; any failure exits non-zero:
    in-kernel-fold forward and backward, a block per board) against their
    plain versions, bf16 and f32, at the shapes the paths give them (update
    minibatch, rollout and validation batch, a tournament half-pairing) and
-   at odd, small and wide ones, within the stated tolerances; K3 in bf16
-   (the tensor-core kernel) run twice: the same bits;
+   at odd, small and wide ones, within the stated tolerances; K3 and K8 in
+   bf16 (the tensor-core kernels) run twice: the same bits;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -65,8 +65,10 @@ Phases, in order; any failure exits non-zero:
    kernels: its forward, and forward plus backward beside the backward
    kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
    minibatch and at the rollout batch of 384, K5-K7 also at a tournament
-   half-pairing of 16; K2 and K3 in bf16 also through their first version,
-   the FMA kernel (``first_version_ms``); the
+   half-pairing of 16; K2, K3 and K8 in bf16 also through their first
+   version, the FMA kernel (``first_version_ms``); K8's tensor-core
+   instantiations on the paths with their registers, spill bytes and blocks
+   an SM; the
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
    lane slice) at the 9x9 and 13x13 batches of either kind, layout
    operations included, for the dispatch (the ``threshold`` line); one
@@ -142,6 +144,13 @@ ATTN_KERNELS = {
     "attn_packed_fwd": ("packed", False, f"{PALLAS}:303", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
     "attn_packed_bwd": ("packed", True, f"{PALLAS}:575", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
 }
+# The attention forwards that run on the tensor cores in bf16.
+TENSOR_CORE_FORWARDS = ("attn_folded_fwd", "attn_packed_fwd")
+# (L, Dh) of K8's tensor-core instantiations on the paths: 13x13 with two
+# heads of 64 (path B, the 13x13 tournament) and with eight of 12 (the
+# no-gradient forwards of transformer_b_l and transformer_c_l), 9x9 with
+# heads of 32 (transformer_s, transformer_l), and the largest the kernel takes.
+K8_INSTANTIATIONS = ((169, 64), (169, 12), (81, 32), (192, 64))
 # (B, L, H, Dh) at which every route through an attention kernel is timed:
 # the update minibatch, then the rollout batch of 384 at the registry's four
 # Dh < 32 shapes (9x9 or 13x13, four heads of 14 or eight of 12), a
@@ -367,8 +376,8 @@ def phase_attention(torch, dev):
                 for kernel in forwards:
                     fwd, fwd_ref = attn_kernel(kernel)
                     got[kernel] = {"o": fwd(q, k, v, *extra)}
-                    if (kernel, dtype) == ("attn_folded_fwd", torch.bfloat16) and not torch.equal(
-                            got[kernel]["o"], fwd(q, k, v)):
+                    if kernel in TENSOR_CORE_FORWARDS and dtype == torch.bfloat16 and not torch.equal(
+                            got[kernel]["o"], fwd(q, k, v, *extra)):
                         raise AssertionError(f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
                                              "two runs differ")
                     torch.cuda.synchronize()
@@ -633,9 +642,9 @@ def time_attention(torch, dev, name, b, l, h, dh):
     plain_iters = 10 if b > 1024 else 30
     ms, call = timed(lambda: kernel(*args, *extra), name, 50)
     first = {}
-    if name == "attn_folded_fwd":  # the FMA kernel, K3's first version, on the same inputs
+    if name in TENSOR_CORE_FORWARDS:  # the FMA kernel, the first version, on the same inputs
         first["first_version_ms"], first["first_version_call_ms"] = timed(
-            lambda: kernel(*args, kernel="fma"), name, 50)
+            lambda: kernel(*args, *extra, kernel="fma"), name, 50)
     plain, plain_call = timed(lambda: plain_version(*args, *extra), iters=plain_iters, warmup=3)
 
     lq, lk, lv, ldo = (sdpa_layout(torch, t, b, l, h, dh, packed) for t in (q, k, v, do))
@@ -684,8 +693,25 @@ def attention_kernel_records(torch, dev, launches, attn_errors):
         record["at_rollout_batch"] = at[1]
         if len(at) > 2:
             record["at_tournament_batch"] = at[2]
+        if name == "attn_packed_fwd":
+            record["instantiations"] = k8_instantiations(torch, dev)
         records.append(record)
     return records
+
+
+def k8_instantiations(torch, dev):
+    """What each of K8's tensor-core instantiations on the paths takes on the
+    card (registers, spill bytes, shared memory, blocks an SM)."""
+    from rl_selfplay_mnk_tpu_torch.ops.attention import packed_fwd_mma_resources
+
+    out = []
+    for l, dh in K8_INSTANTIATIONS:
+        rec = {"L": l, "dh": dh, **packed_fwd_mma_resources(l, dh, dev)}
+        print(f"attn_packed_fwd tensor cores (L, Dh)=({l}, {dh}): {rec['registers']} registers, "
+              f"{rec['local_bytes']} local (spill) bytes a thread; {rec['heads_per_block']} heads, "
+              f"{rec['smem_bytes']} bytes of shared memory a block; {rec['blocks_per_sm']} blocks an SM")
+        out.append(rec)
+    return out
 
 
 def phase_threshold(torch, dev):

@@ -43,11 +43,13 @@
 // P.V straight from registers, V's B fragments come from a plain ldmatrix.
 // O goes back over the warp's own columns of q's slab and leaves as the
 // span it came in. Padded key columns get x = -inf (p = 0); padded query
-// rows (q zero) are computed and never stored.
+// rows (q zero) are computed and never stored. The packed forward in bf16
+// (attn_packed_fwd_mma) is the same kernel on [token][channel] slabs, staged
+// by cp.async (see there).
 //
-// The other kernels here, and the folded forward in f32 (a tensor-core
-// product of f32 data would round to TF32), do their products with FMA on
-// the CUDA cores out of shared memory, and that is what bounds them.
+// The other kernels here, and both forwards in f32 (a tensor-core product
+// of f32 data would round to TF32), do their products with FMA on the CUDA
+// cores out of shared memory, and that is what bounds them.
 //
 // Design of those: one block per (board, head). The head's q, k, v (and dO) sit in
 // shared memory as f32 rows whose stride is a multiple of four floats and an
@@ -649,6 +651,58 @@ __device__ __forceinline__ void move_span(bf16* __restrict__ dev, bf16* smem, in
     }
 }
 
+// Softmax of a warp's 16 query rows, whose scores s are the C fragments of
+// S = Q . K^T over kNT 8-key tiles: rows g (s[.][0..1]) and g + 8 (s[.][2..3]).
+// In f32 with the arithmetic of softmax_rows: x = s * scale, key columns past
+// the board get x = -inf (p = 0; the lane's column 8j + tc + c is a token iff
+// 8j + c < live_cols = L - tc), s becomes exp(x - max) in place and rinv
+// 1 / sum for each of the lane's two rows. Max and sum go by quad shuffles.
+template <int kNT>
+__device__ __forceinline__ void softmax_fragments(float (&s)[kNT][4], int live_cols, float scale,
+                                                  float (&rinv)[2]) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            s[j][e] = j * 8 + (e & 1) < live_cols ? __fmul_rn(s[j][e], scale) : -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            s[j][e] = expf(__fsub_rn(s[j][e], mx[e >> 1]));
+            sum[e >> 1] += s[j][e];
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+        sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+        rinv[r] = __frcp_rn(sum[r]);
+    }
+}
+
+// p = exp(x - max) * (1 / sum) of keys 16 jt .. 16 jt + 15, rounded to bf16,
+// as the A fragment of O = P . V, straight from softmax_fragments' registers.
+template <int kNT>
+__device__ __forceinline__ void probability_fragment(uint32_t (&pa)[4], const float (&s)[kNT][4],
+                                                     int jt, const float (&rinv)[2]) {
+    const int lo = 2 * jt, hi = 2 * jt + 1;
+    pa[0] = pack_bf16(__fmul_rn(s[lo][0], rinv[0]), __fmul_rn(s[lo][1], rinv[0]));
+    pa[1] = pack_bf16(__fmul_rn(s[lo][2], rinv[1]), __fmul_rn(s[lo][3], rinv[1]));
+    pa[2] = pack_bf16(__fmul_rn(s[hi][0], rinv[0]), __fmul_rn(s[hi][1], rinv[0]));
+    pa[3] = pack_bf16(__fmul_rn(s[hi][2], rinv[1]), __fmul_rn(s[hi][3], rinv[1]));
+}
+
 // kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:
 // 16-channel tiles (key_tiles, channel_tiles).
 template <int kKT, int kDK>
@@ -680,7 +734,6 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_fold
     // This lane's row of an ldmatrix.x4: 8 rows of one tile, two tiles down
     // (rows + 8) and two across (16 bytes further).
     const int r8 = lane & 7, down = (lane >> 3) & 1, across = lane >> 4;
-    const int live_cols = L - tc;  // key column 8j + tc + c is a token iff 8j + c < live_cols
 
     for (int item = warp; item < nh * kKT; item += kMmaWarps) {
         const int hl = item / kKT;
@@ -712,40 +765,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_fold
             }
         }
 
-        // Softmax of rows i0 + g (s[.][0..1]) and i0 + g + 8 (s[.][2..3]) in
-        // f32, the arithmetic of softmax_rows: x = s * scale, p = exp(x - max)
-        // * (1 / sum). Key columns >= L get x = -inf, so p = 0. Query rows >=
-        // L (q zero there) are computed like the others and never stored.
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < 2 * kKT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = j * 8 + (e & 1) < live_cols ? __fmul_rn(s[j][e], scale) : -INFINITY;
-                mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-            }
-        }
-        float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-        }
-#pragma unroll
-        for (int j = 0; j < 2 * kKT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = expf(__fsub_rn(s[j][e], mx[e >> 1]));
-                sum[e >> 1] += s[j][e];
-            }
-        }
         float rinv[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
-            sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
-            rinv[r] = __frcp_rn(sum[r]);
-        }
+        softmax_fragments(s, L - tc, scale, rinv);
 
         // O = round(P) . V: the rounded probabilities of keys 16jt .. 16jt+15
         // are the A fragment, straight from registers; B = V (depth j,
@@ -757,13 +778,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_fold
             for (int e = 0; e < 4; ++e) oacc[u][e] = 0.0f;
 #pragma unroll
         for (int jt = 0; jt < kKT; ++jt) {
-            const int lo = 2 * jt, hi = 2 * jt + 1;
-            const uint32_t pa[4] = {
-                pack_bf16(__fmul_rn(s[lo][0], rinv[0]), __fmul_rn(s[lo][1], rinv[0])),
-                pack_bf16(__fmul_rn(s[lo][2], rinv[1]), __fmul_rn(s[lo][3], rinv[1])),
-                pack_bf16(__fmul_rn(s[hi][0], rinv[0]), __fmul_rn(s[hi][1], rinv[0])),
-                pack_bf16(__fmul_rn(s[hi][2], rinv[1]), __fmul_rn(s[hi][3], rinv[1])),
-            };
+            uint32_t pa[4];
+            probability_fragment(pa, s, jt, rinv);
 #pragma unroll
             for (int kk = 0; kk < kDK; ++kk) {
                 uint32_t b[4];
@@ -805,14 +821,295 @@ int folded_fwd_mma(const void* q, const void* k, const void* v, void* o, int BH,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int kKT>
-int folded_fwd_mma_dk(const void* q, const void* k, const void* v, void* o, int BH, int dh, int L,
-                      int heads, cudaStream_t stream) {
+// The instantiation of a tensor-core kernel for a head of L tokens and dh
+// channels: f(Tiles<key_tiles(L)>{}, Tiles<channel_tiles(dh)>{}).
+template <int N>
+struct Tiles {
+    static constexpr int value = N;
+};
+
+template <int kKT, typename F>
+int for_channel_tiles(int dh, const F& f) {
     switch (channel_tiles(dh)) {
-        case 1: return folded_fwd_mma<kKT, 1>(q, k, v, o, BH, dh, L, heads, stream);
-        case 2: return folded_fwd_mma<kKT, 2>(q, k, v, o, BH, dh, L, heads, stream);
-        default: return folded_fwd_mma<kKT, 4>(q, k, v, o, BH, dh, L, heads, stream);
+        case 1: return f(Tiles<kKT>{}, Tiles<1>{});
+        case 2: return f(Tiles<kKT>{}, Tiles<2>{});
+        default: return f(Tiles<kKT>{}, Tiles<4>{});
     }
+}
+
+template <typename F>
+int for_tiles(int L, int dh, const F& f) {
+    switch (key_tiles(L)) {
+        case 1: return for_channel_tiles<1>(dh, f);
+        case 2: return for_channel_tiles<2>(dh, f);
+        case 3: return for_channel_tiles<3>(dh, f);
+        case 4: return for_channel_tiles<4>(dh, f);
+        case 6: return for_channel_tiles<6>(dh, f);
+        case 8: return for_channel_tiles<8>(dh, f);
+        case 11: return for_channel_tiles<11>(dh, f);
+        default: return for_channel_tiles<12>(dh, f);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The packed forward in bf16 on the tensor cores (K8's bf16 path)
+// ---------------------------------------------------------------------------
+//
+// attn_folded_fwd_mma moved to the packed layout. A head is L rows of Dh
+// contiguous values at a stride of D = H Dh, so its shared slabs are
+// [token][channel]: bf16 [16 key_tiles(L)][ld], ld = 16 channel_tiles(Dh) + 8
+// (an odd number of 16-byte words), zero outside [L][Dh]. That is the layout
+// m16n8k16 takes without a transpose for Q as A and for K as the B of Q.K^T,
+// and through ldmatrix.trans for V as the B of P.V. A head row goes into its
+// slab row by cp.async in the widest word (16, 8 or 4 bytes) that divides
+// its 2 Dh bytes and the tensors' addresses, so a thread's copies are all in
+// flight at once and nothing is scattered; only an odd Dh takes element
+// copies. The rest is K3's: a block of four warps takes up to four
+// consecutive heads (of one board or of two), a warp 16 query rows of a
+// head, the scores and probabilities stay in registers, p is rounded to bf16
+// where _packed_fwd_kernel rounds it, and O goes back over the warp's own
+// rows of q's slab and leaves in the same words. Sums run in one fixed order
+// and there are no atomics: the same bits every run.
+//
+// A (169, 64) head takes 76 KB of shared memory: three blocks fit an SM,
+// and a thread may hold 168 registers (launch bounds of K3).
+
+__host__ __device__ inline size_t packed_mma_smem_bytes(int L, int dh, int heads) {
+    return static_cast<size_t>(heads) * 3 * 16 * key_tiles(L)
+           * padded_row_elems(16 * channel_tiles(dh)) * sizeof(bf16);
+}
+
+template <int kBytes> struct WordOf;
+template <> struct WordOf<16> { using type = uint4; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<4> { using type = uint32_t; };
+template <> struct WordOf<2> { using type = uint16_t; };
+
+// The widest word, 16 bytes at most, that divides a head row's 2 Dh bytes
+// and every tensor's address: each head row then starts on a word.
+int packed_word_bytes(const void* q, const void* k, const void* v, const void* o, int dh) {
+    const uintptr_t all = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+                          | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)
+                          | static_cast<uintptr_t>(2 * dh);
+    int bytes = 16;
+    while (bytes > 2 && (all & (bytes - 1)) != 0) bytes >>= 1;
+    return bytes;
+}
+
+// Element offset of head n's row 0 in a packed tensor.
+__device__ __forceinline__ size_t packed_head_base(int n, int L, int H, int dh) {
+    const int b = n / H;
+    return static_cast<size_t>(b) * L * H * dh + static_cast<size_t>(n - b * H) * dh;
+}
+
+// The block's nh heads of q, k and v -> their shared slabs, in words of
+// kBytes. A slab row's 16 kDK channels are a power of two of words that
+// divides the block's threads, so a thread keeps one word column and walks
+// the rows. Rows >= L and words past the head's Dh channels are zeroed. The
+// copies stay in flight until the caller's cp_async_wait_all.
+template <int kKT, int kDK, int kBytes>
+__device__ __forceinline__ void stage_packed(const bf16* const (&src)[3], bf16* smem, int head0,
+                                             int nh, int L, int H, int dh) {
+    using Word = typename WordOf<kBytes>::type;
+    constexpr int kLd = 16 * kDK + 8, kSlab = 16 * kKT * kLd;
+    constexpr int kWords = 32 * kDK / kBytes, kElems = kBytes / 2;
+    constexpr int kRowStep = kMmaWarps * 32 / kWords;
+    const int w = threadIdx.x % kWords, live = 2 * dh / kBytes;
+    const size_t D = static_cast<size_t>(H) * dh;
+    for (int hl = 0; hl < nh; ++hl) {
+        const size_t base = packed_head_base(head0 + hl, L, H, dh) + w * kElems;
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+            const bf16* from = src[t] + base;
+            bf16* to = smem + (3 * hl + t) * kSlab + w * kElems;
+            for (int l = threadIdx.x / kWords; l < 16 * kKT; l += kRowStep) {
+                bf16* at = to + l * kLd;
+                if (l < L && w < live) {
+                    if constexpr (kBytes == 16) cp_async_16(shared_address(at), from + l * D);
+                    else if constexpr (kBytes == 2) *at = from[l * D];
+                    else cp_async_small<kBytes>(shared_address(at), from + l * D);
+                } else {
+                    *reinterpret_cast<Word*>(at) = Word{};
+                }
+            }
+        }
+    }
+}
+
+// O's rows [0, L) of the block's heads, from q's slabs, out to o.
+template <int kKT, int kDK, int kBytes>
+__device__ __forceinline__ void store_packed(bf16* __restrict__ o, const bf16* smem, int head0,
+                                             int nh, int L, int H, int dh) {
+    using Word = typename WordOf<kBytes>::type;
+    constexpr int kLd = 16 * kDK + 8, kSlab = 16 * kKT * kLd;
+    constexpr int kWords = 32 * kDK / kBytes, kElems = kBytes / 2;
+    constexpr int kRowStep = kMmaWarps * 32 / kWords;
+    const int w = threadIdx.x % kWords;
+    if (w >= 2 * dh / kBytes) return;
+    const size_t D = static_cast<size_t>(H) * dh;
+    for (int hl = 0; hl < nh; ++hl) {
+        bf16* to = o + packed_head_base(head0 + hl, L, H, dh) + w * kElems;
+        const bf16* from = smem + 3 * hl * kSlab + w * kElems;
+        for (int l = threadIdx.x / kWords; l < L; l += kRowStep)
+            *reinterpret_cast<Word*>(to + l * D) = *reinterpret_cast<const Word*>(from + l * kLd);
+    }
+}
+
+// kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:
+// 16-channel tiles (key_tiles, channel_tiles); word_bytes from
+// packed_word_bytes.
+template <int kKT, int kDK>
+__global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_packed_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int n_heads, int L, int H, int dh, int heads, int word_bytes,
+    float scale)
+{
+    constexpr int kLd = 16 * kDK + 8;       // padded_row_elems(16 kDK)
+    constexpr int kSlab = 16 * kKT * kLd;   // one tensor of one head
+    constexpr int kHeadStride = 3 * kSlab;  // a head's q, k, v slabs, in that order
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+    const int head0 = blockIdx.x * heads;
+    const int nh = min(heads, n_heads - head0);
+    const bf16* const src[3] = {q, k, v};
+
+    switch (word_bytes) {
+        case 16: stage_packed<kKT, kDK, 16>(src, smem, head0, nh, L, H, dh); break;
+        case 8: stage_packed<kKT, kDK, 8>(src, smem, head0, nh, L, H, dh); break;
+        case 4: stage_packed<kKT, kDK, 4>(src, smem, head0, nh, L, H, dh); break;
+        default: stage_packed<kKT, kDK, 2>(src, smem, head0, nh, L, H, dh); break;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = frag_row(lane), tc = frag_col(lane);
+    // This lane's row of an ldmatrix.x4: 8 rows of one tile, two tiles down
+    // (rows + 8) and two across (16 bytes further).
+    const int r8 = lane & 7, down = (lane >> 3) & 1, across = lane >> 4;
+
+    for (int item = warp; item < nh * kKT; item += kMmaWarps) {
+        const int hl = item / kKT;
+        const int i0 = (item - hl * kKT) * 16;  // this warp's 16 query rows
+        bf16* qs = smem + hl * kHeadStride;
+        const uint32_t qs_at = shared_address(qs);
+        const uint32_t ks_at = qs_at + kSlab * 2, vs_at = qs_at + 2 * kSlab * 2;
+
+        // A = Q (rows i, depth d) from q's [i][d] rows: plain ldmatrix.
+        uint32_t qa[kDK][4];
+#pragma unroll
+        for (int kk = 0; kk < kDK; ++kk)
+            ldmatrix_x4(qa[kk], qs_at + ((i0 + a_row_of_lane(lane)) * kLd + kk * 16
+                                         + a_half_of_lane(lane) * 8) * 2);
+
+        // S = Q . K^T: B = K^T (depth d, columns j) from k's [j][d] rows: plain ldmatrix.
+        float s[2 * kKT][4];
+#pragma unroll
+        for (int j = 0; j < 2 * kKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4(b, ks_at + ((jt * 16 + across * 8 + r8) * kLd + kk * 16 + down * 8) * 2);
+                mma_bf16_16816(s[2 * jt], qa[kk], b[0], b[1]);
+                mma_bf16_16816(s[2 * jt + 1], qa[kk], b[2], b[3]);
+            }
+        }
+
+        float rinv[2];
+        softmax_fragments(s, L - tc, scale, rinv);
+
+        // O = round(P) . V: B = V (depth j, columns d) from v's [j][d] rows:
+        // ldmatrix.trans.
+        float oacc[2 * kDK][4];
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oacc[u][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+            uint32_t pa[4];
+            probability_fragment(pa, s, jt, rinv);
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4_trans(b, vs_at + ((jt * 16 + down * 8 + r8) * kLd + kk * 16 + across * 8) * 2);
+                mma_bf16_16816(oacc[2 * kk], pa, b[0], b[1]);
+                mma_bf16_16816(oacc[2 * kk + 1], pa, b[2], b[3]);
+            }
+        }
+
+        // O's rows go over q's rows i0 .. i0+15, which only this warp reads
+        // (its A fragments are already in registers), two channels a store.
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                *reinterpret_cast<uint32_t*>(qs + (i0 + g + 8 * r) * kLd + u * 8 + tc) =
+                    pack_bf16(oacc[u][2 * r], oacc[u][2 * r + 1]);
+            }
+        }
+    }
+    __syncthreads();
+    switch (word_bytes) {
+        case 16: store_packed<kKT, kDK, 16>(o, smem, head0, nh, L, H, dh); break;
+        case 8: store_packed<kKT, kDK, 8>(o, smem, head0, nh, L, H, dh); break;
+        case 4: store_packed<kKT, kDK, 4>(o, smem, head0, nh, L, H, dh); break;
+        default: store_packed<kKT, kDK, 2>(o, smem, head0, nh, L, H, dh); break;
+    }
+}
+
+// Once per instantiation: the card's whole per-block shared memory, and the
+// largest shared-memory carveout, so that as many blocks share an SM as fit.
+template <int kKT, int kDK>
+cudaError_t packed_fwd_mma_setup() {
+    static bool done = false;
+    if (done) return cudaSuccess;
+    bool allowed = false;
+    cudaError_t err = allow_large_smem(attn_packed_fwd_mma<kKT, kDK>, allowed);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(attn_packed_fwd_mma<kKT, kDK>,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+    done = err == cudaSuccess;
+    return err;
+}
+
+template <int kKT, int kDK>
+int packed_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                   int dh, int heads, cudaStream_t stream) {
+    const cudaError_t err = packed_fwd_mma_setup<kKT, kDK>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_heads = B * H;
+    const int blocks = static_cast<int>((static_cast<long long>(n_heads) + heads - 1) / heads);
+    attn_packed_fwd_mma<kKT, kDK><<<blocks, kMmaWarps * 32, packed_mma_smem_bytes(L, dh, heads),
+                                    stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), n_heads, L, H, dh, heads, packed_word_bytes(q, k, v, o, dh),
+        1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local memory (spills) a thread of the instantiation takes,
+// and how many of its blocks of `heads` heads fit an SM.
+template <int kKT, int kDK>
+int packed_fwd_mma_resources(int L, int dh, int heads, int* registers, int* local_bytes,
+                             int* blocks_per_sm) {
+    cudaError_t err = packed_fwd_mma_setup<kKT, kDK>();
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, attn_packed_fwd_mma<kKT, kDK>);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks_per_sm, attn_packed_fwd_mma<kKT, kDK>, kMmaWarps * 32,
+            packed_mma_smem_bytes(L, dh, heads));
+    if (err == cudaSuccess) {
+        *registers = attr.numRegs;
+        *local_bytes = static_cast<int>(attr.localSizeBytes);
+    }
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -882,15 +1179,39 @@ extern "C" int attn_folded_fwd_mma_launch(int is_bf16, const void* q, const void
     if (!is_bf16 || !shape_ok(BH, L, dh, kMmaWarps * 32, kMmaWarps * 32) || heads < 1
         || heads > kMmaMaxHeads)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (key_tiles(L)) {
-        case 1: return folded_fwd_mma_dk<1>(q, k, v, o, BH, dh, L, heads, s);
-        case 2: return folded_fwd_mma_dk<2>(q, k, v, o, BH, dh, L, heads, s);
-        case 3: return folded_fwd_mma_dk<3>(q, k, v, o, BH, dh, L, heads, s);
-        case 4: return folded_fwd_mma_dk<4>(q, k, v, o, BH, dh, L, heads, s);
-        case 6: return folded_fwd_mma_dk<6>(q, k, v, o, BH, dh, L, heads, s);
-        case 8: return folded_fwd_mma_dk<8>(q, k, v, o, BH, dh, L, heads, s);
-        case 11: return folded_fwd_mma_dk<11>(q, k, v, o, BH, dh, L, heads, s);
-        default: return folded_fwd_mma_dk<12>(q, k, v, o, BH, dh, L, heads, s);
-    }
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        return folded_fwd_mma<decltype(kt)::value, decltype(dk)::value>(
+            q, k, v, o, BH, dh, L, heads, static_cast<cudaStream_t>(stream));
+    });
+}
+
+// The packed forward on the tensor cores, bf16 only (is_bf16 = 1): `heads`
+// consecutive heads a block (at most 4), four warps, a warp per 16 query
+// rows of a head.
+extern "C" size_t attn_packed_fwd_mma_smem_bytes(int L, int dh, int heads) {
+    return packed_mma_smem_bytes(L, dh, heads);
+}
+
+extern "C" int attn_packed_fwd_mma_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                          void* o, int B, int L, int H, int dh, int heads,
+                                          void* stream) {
+    if (B == 0) return 0;
+    if (!is_bf16 || H < 1
+        || !shape_ok(static_cast<long long>(B) * H, L, dh, kMmaWarps * 32, kMmaWarps * 32)
+        || heads < 1 || heads > kMmaMaxHeads)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        return packed_fwd_mma<decltype(kt)::value, decltype(dk)::value>(
+            q, k, v, o, B, L, H, dh, heads, static_cast<cudaStream_t>(stream));
+    });
+}
+
+extern "C" int attn_packed_fwd_mma_resources(int L, int dh, int heads, int* registers,
+                                             int* local_bytes, int* blocks_per_sm) {
+    if (!shape_ok(1, L, dh, kMmaWarps * 32, kMmaWarps * 32) || heads < 1 || heads > kMmaMaxHeads)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        return packed_fwd_mma_resources<decltype(kt)::value, decltype(dk)::value>(
+            L, dh, heads, registers, local_bytes, blocks_per_sm);
+    });
 }

@@ -1,5 +1,5 @@
 // Tensor-core building blocks for the bf16 kernels (resblock.cu K2,
-// attention.cu K3): warp-wide ldmatrix loads of 8x8 b16 tiles out of shared
+// attention.cu K3 and K8): warp-wide ldmatrix loads of 8x8 b16 tiles out of shared
 // memory, the m16n8k16 bf16 product with f32 accumulation, the index maps of
 // its fragments, cp.async copies into shared memory and division by a
 // multiply.
@@ -68,6 +68,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t row
 // registers; the copies of a thread stay in flight until cp_async_wait_all.
 __device__ __forceinline__ void cp_async_16(uint32_t smem, const void* global) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem), "l"(global));
+}
+
+// 4 or 8 bytes the same way, through L1 (the .cg form copies 16 bytes only).
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(uint32_t smem, const void* global) {
+    static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" :: "r"(smem), "l"(global), "n"(kBytes));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {

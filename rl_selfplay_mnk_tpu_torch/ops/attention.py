@@ -6,8 +6,7 @@ Replaces the TPU kernels of ``rl_selfplay_mnk_tpu/ops/pallas_attention.py``:
   * ``attention_folded`` on (BH, Dh, L): ``_attn_kernel`` forward (K3) and
     ``_attn_bwd_kernel`` backward (K4);
   * ``attention_packed`` on (B, L, D = H * Dh): ``_packed_fwd_kernel``
-    forward (K8) and ``_packed_bwd_kernel`` backward (K9), a block per
-    (board, head);
+    forward (K8) and ``_packed_bwd_kernel`` backward (K9);
   * ``attention_lane_slice_fwd`` on (B, L, D): ``_lane_slice_fwd_kernel``
     (K5), forward only, a block per board, heads as column slices on chip;
   * ``attention_infold`` on (B, L, D): ``_infold_fwd_kernel`` forward (K6) and
@@ -28,12 +27,12 @@ recomputes the probabilities in its backward; the incoming gradient is cast
 to q's dtype first.
 
 On the H100 both directions are bound by bytes at the models' shapes. The
-bf16 folded forward (K3, ``folded_fwd_kernel_for``) does its two products
-on the tensor cores (``mma.sync``), a warp per 16 query rows with the scores
-and probabilities in registers. The other kernels, and K3 in f32, hold a
-head or a board in shared memory (``csrc/attention.cu``,
-``csrc/attention_board.cu``) and do their products with FMA on the CUDA
-cores, which bound them for now.
+bf16 folded and packed forwards (K3, ``folded_fwd_kernel_for``; K8,
+``packed_fwd_kernel_for``) do their two products on the tensor cores
+(``mma.sync``), a warp per 16 query rows with the scores and probabilities
+in registers. The other kernels, and K3 and K8 in f32, hold a head or a
+board in shared memory (``csrc/attention.cu``, ``csrc/attention_board.cu``)
+and do their products with FMA on the CUDA cores, which bound them for now.
 
 The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
 ``attention_packed_fwd``, ``attention_packed_bwd``,
@@ -185,44 +184,76 @@ def _lib():
     lib.attn_folded_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     lib.attn_folded_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 4 + [p]
     lib.attn_packed_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
+    lib.attn_packed_fwd_mma_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
+    lib.attn_packed_fwd_mma_smem_bytes.argtypes = [i] * 3
+    lib.attn_packed_fwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.attn_packed_fwd_mma_resources.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
     lib.attn_packed_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
     for fn in (lib.attn_folded_fwd_launch, lib.attn_folded_bwd_launch, lib.attn_folded_fwd_mma_launch,
-               lib.attn_packed_fwd_launch, lib.attn_packed_bwd_launch):
+               lib.attn_packed_fwd_launch, lib.attn_packed_fwd_mma_launch,
+               lib.attn_packed_fwd_mma_resources, lib.attn_packed_bwd_launch):
         fn.restype = i
     return lib
+
+
+def _fwd_kernel_for(name: str, dtype: torch.dtype) -> str:
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"{name}: unsupported dtype {dtype}")
 
 
 def folded_fwd_kernel_for(dtype: torch.dtype) -> str:
     """The kernel K3 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
     ``"fma"`` (the CUDA cores) for f32."""
-    if dtype == torch.bfloat16:
-        return "mma"
-    if dtype == torch.float32:
-        return "fma"
-    raise ValueError(f"attention_folded_fwd: unsupported dtype {dtype}")
+    return _fwd_kernel_for("attention_folded_fwd", dtype)
+
+
+def packed_fwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K8 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, whose products on the tensor cores
+    would round to TF32."""
+    return _fwd_kernel_for("attention_packed_fwd", dtype)
 
 
 _MMA_MAX_HEADS = 4  # csrc/attention.cu kMmaMaxHeads
-_MMA_HEADS_SMEM = 64 * 1024  # a block of the tensor-core K3 takes heads up to this much
+_MMA_HEADS_SMEM = 64 * 1024  # a block of a tensor-core forward takes heads up to this much
 
 
 @functools.lru_cache(maxsize=None)
-def _folded_mma_heads(l: int, dh: int, device: torch.device) -> int:
-    """Heads a block of the tensor-core K3 takes: up to four, while their
-    q, k and v fit in 64 KiB of shared memory (three or more blocks an SM),
-    and one where a single head needs more."""
+def _mma_heads(layout: str, l: int, dh: int, device: torch.device) -> int:
+    """Heads a block of the tensor-core K3 (``layout`` "folded") or K8
+    ("packed") takes: up to four, while their q, k and v fit in 64 KiB of
+    shared memory (three or more blocks an SM), and one where a single head
+    needs more."""
     lib = _lib()
     if l > lib.attn_max_tokens() or dh > lib.attn_max_head_dim():
         raise KernelError(
             f"attention: L={l}, Dh={dh} is beyond the kernel's "
             f"L <= {lib.attn_max_tokens()}, Dh <= {lib.attn_max_head_dim()}"
         )
-    one = lib.attn_folded_fwd_mma_smem_bytes(l, dh, 1)
+    one = getattr(lib, f"attn_{layout}_fwd_mma_smem_bytes")(l, dh, 1)
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if one > limit:
         raise KernelError(f"attention forward: L={l}, Dh={dh} needs {one} bytes of shared "
                           f"memory per block, the card allows {limit}")
     return max(1, min(_MMA_MAX_HEADS, _MMA_HEADS_SMEM // one))
+
+
+def packed_fwd_mma_resources(l: int, dh: int, device: torch.device) -> dict:
+    """What the tensor-core K8 for heads of (L, Dh) takes on the card: the
+    registers and local (spill) bytes of a thread, the heads and shared bytes
+    of a block, and the blocks that fit an SM."""
+    lib = _lib()
+    heads = _mma_heads("packed", l, dh, device)
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        check_launch("attn_packed_fwd_mma_resources", lib.attn_packed_fwd_mma_resources(
+            l, dh, heads, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)))
+    return {"registers": regs.value, "local_bytes": local.value, "heads_per_block": heads,
+            "smem_bytes": lib.attn_packed_fwd_mma_smem_bytes(l, dh, heads),
+            "blocks_per_sm": blocks.value}
 
 
 @functools.lru_cache(maxsize=None)
@@ -382,7 +413,7 @@ def attention_folded_fwd(q, k, v, kernel: str | None = None):
                        (bh, dh, l))[0]
     _checked("attention_folded_fwd", tensors)
     return _run(attention_folded_fwd, _lib().attn_folded_fwd_mma_launch, tensors, 1,
-                (bh, dh, l, _folded_mma_heads(l, dh, q.device)))[0]
+                (bh, dh, l, _mma_heads("folded", l, dh, q.device)))[0]
 
 
 def attention_folded_bwd(q, k, v, do):
@@ -394,13 +425,25 @@ def attention_folded_bwd(q, k, v, do):
                          {"q": q, "k": k, "v": v, "do": do}, l, dh, (bh, dh, l)))
 
 
-def attention_packed_fwd(q, k, v, h: int, dh: int):
-    """K8: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh)."""
+def attention_packed_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
+    """K8: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh).
+
+    On the card it launches ``packed_fwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
+    which chip_smoke.py times beside the tensor-core kernel)."""
     if not _on_card("attention_packed_fwd", q):
         return attention_packed_reference(q, k, v, h, dh)
     dims = _packed_dims("attention_packed_fwd", q, h, dh)
-    return _launch(attention_packed_fwd, "attn_packed_fwd_launch", False,
-                   {"q": q, "k": k, "v": v}, dims[1], dh, dims)[0]
+    tensors = {"q": q, "k": k, "v": v}
+    default = packed_fwd_kernel_for(q.dtype)
+    if kernel not in (None, default, "fma"):
+        raise ValueError(f"attention_packed_fwd: no {kernel!r} kernel for {q.dtype}")
+    if (kernel or default) == "fma":
+        return _launch(attention_packed_fwd, "attn_packed_fwd_launch", False, tensors, dims[1], dh,
+                       dims)[0]
+    _checked("attention_packed_fwd", tensors)
+    return _run(attention_packed_fwd, _lib().attn_packed_fwd_mma_launch, tensors, 1,
+                (*dims, _mma_heads("packed", dims[1], dh, q.device)))[0]
 
 
 def attention_packed_bwd(q, k, v, do, h: int, dh: int):

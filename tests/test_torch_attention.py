@@ -4,8 +4,8 @@ same numpy arrays: the folded and the packed pair, forward and backward,
 ``tiny_head_attention`` with its autograd gradient through both branches of
 the dispatch, then the one-block-per-board kernels' plain versions (lane
 slice, in-kernel fold), ``attention_infold`` against ``jax.grad`` and the
-dispatch's choice of route. Float32 on the CPU, and bf16 once to pin where p
-and ds are rounded."""
+dispatch's choice of route. Float32 on the CPU, and bf16 to pin where p
+and ds are rounded, in the folded pair and in the packed forward."""
 
 import jax
 import jax.numpy as jnp
@@ -160,6 +160,45 @@ def test_bf16_rounding_points_match_pallas_interpret():
     p = tattn._probabilities_reference(q, k)
     o_unrounded_p = torch.matmul(p, v.float()).to(torch.bfloat16)
     assert not torch.equal(o_unrounded_p.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("b,l,h,dh", [(2, 25, 2, 64), (2, 25, 4, 14)])
+def test_packed_bf16_rounding_points_match_pallas_interpret(b, l, h, dh):
+    """The packed forward with bf16 inputs: p is rounded to bf16 before P.V
+    and the output to bf16, as ``_packed_fwd_kernel`` does. Held against it in
+    interpret mode within two bf16 ulps of the result's size, as the folded
+    pair above; the tensor-core K8 follows these rounding points."""
+    xs = arrays(18, (b, l, h * dh), 3)
+    ts = to_torch(xs, torch.bfloat16)
+    js = [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+    want = jattn._attention_packed_fwd_pallas(*js, h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_packed_reference(*ts, h, dh)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2.0**-7, atol=2.0**-7)
+    # The rounding point itself: with p left in f32 the output is another one.
+    q, k, v = (tattn._packed_to_heads(t, h, dh) for t in ts)
+    p = tattn._probabilities_reference(q, k)
+    o_unrounded_p = tattn._heads_to_packed(torch.matmul(p, v.float()).to(torch.bfloat16), b, h)
+    assert not torch.equal(o_unrounded_p, got)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_packed_forward_kernel_follows_the_dtype(dtype, kernel):
+    """K8 takes the tensor-core kernel for bf16 and the FMA kernel (its first
+    version) for f32, whose products on the tensor cores would round to TF32."""
+    assert tattn.packed_fwd_kernel_for(dtype) == kernel
+    with pytest.raises(ValueError, match="attention_packed_fwd: unsupported dtype"):
+        tattn.packed_fwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "fma"])
+def test_packed_forward_on_cpu_tensors_is_the_plain_version_for_any_kernel(kernel):
+    xs = to_torch(arrays(19, (2, 9, 2 * 32), 3), torch.bfloat16)
+    before = tattn.attention_packed_fwd.launches
+    got = tattn.attention_packed_fwd(*xs, 2, 32, kernel=kernel)
+    assert tattn.attention_packed_fwd.launches == before
+    assert torch.equal(got, tattn.attention_packed_reference(*xs, 2, 32))
 
 
 # ---------------------------------------------------------------------------

@@ -237,6 +237,37 @@ def test_folded_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry
     assert spy.launched == [entry]
 
 
+# The tensor-core packed forward (K8 in bf16): every token count of the
+# registry's boards up to the kernel's limit, the registry's head widths of
+# 64 and 32, and those of 12 and 14, whose rows are not whole 16-byte words;
+# five boards, so that the last block of two or four heads is short where the
+# count of heads allows it.
+@pytest.mark.parametrize("l", [9, 81, 169, 192])
+@pytest.mark.parametrize("h,dh", [(2, 64), (4, 64), (3, 32), (8, 12), (4, 14)])
+def test_packed_forward_tensor_cores_within_tolerance(device, l, h, dh):
+    b = 5
+    q, k, v = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True, n=3)
+    before = attn.attention_packed_fwd.launches
+    got = attn.attention_packed_fwd(q, k, v, h, dh)
+    again = attn.attention_packed_fwd(q, k, v, h, dh)
+    torch.cuda.synchronize()
+    assert attn.attention_packed_fwd.launches == before + 2
+    assert torch.equal(got, again), "the tensor-core forward is not deterministic"
+    want = attn.attention_packed_reference(q, k, v, h, dh)
+    assert_attn_close(got, want, torch.bfloat16, "o")
+    fma = attn.attention_packed_fwd(q, k, v, h, dh, kernel="fma")
+    assert_attn_close(fma, want, torch.bfloat16, "fma o")
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "attn_packed_fwd_mma_launch"),
+                                         (torch.float32, "attn_packed_fwd_launch")])
+def test_packed_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry):
+    spy = EntrySpy(attn._lib())
+    monkeypatch.setattr(attn, "_lib", lambda: spy)
+    attn.attention_packed_fwd(*attn_inputs(device, dtype, 8, 169, 2, 64, packed=True, n=3), 2, 64)
+    assert spy.launched == [entry]
+
+
 def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):
     """f32 at 13x13, d96: five slabs of the whole board exceed a block's
     shared memory, so the backward takes the heads in groups; same result."""
