@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero:
    in-kernel-fold forward and backward, a block per board) against their
    plain versions, bf16 and f32, at the shapes the paths give them (update
    minibatch, rollout and validation batch, a tournament half-pairing) and
-   at odd, small and wide ones, within the stated tolerances; K3 and K8 in
-   bf16 (the tensor-core kernels) run twice: the same bits;
+   at odd, small and wide ones, within the stated tolerances; K3, K8 and K9
+   in bf16 (the tensor-core kernels) run twice: the same bits; K9's first,
+   FMA version on bf16 is held to the same limit;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -65,8 +66,8 @@ Phases, in order; any failure exits non-zero:
    kernels: its forward, and forward plus backward beside the backward
    kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
    minibatch and at the rollout batch of 384, K5-K7 also at a tournament
-   half-pairing of 16; K2, K3 and K8 in bf16 also through their first
-   version, the FMA kernel (``first_version_ms``); K8's tensor-core
+   half-pairing of 16; K2, K3, K8 and K9 in bf16 also through their first
+   version, the FMA kernel (``first_version_ms``); K8's and K9's tensor-core
    instantiations on the paths with their registers, spill bytes and blocks
    an SM; the
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
@@ -144,13 +145,18 @@ ATTN_KERNELS = {
     "attn_packed_fwd": ("packed", False, f"{PALLAS}:303", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
     "attn_packed_bwd": ("packed", True, f"{PALLAS}:575", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
 }
-# The attention forwards that run on the tensor cores in bf16.
-TENSOR_CORE_FORWARDS = ("attn_folded_fwd", "attn_packed_fwd")
+# The attention kernels that run on the tensor cores in bf16.
+TENSOR_CORE_KERNELS = ("attn_folded_fwd", "attn_packed_fwd", "attn_packed_bwd")
 # (L, Dh) of K8's tensor-core instantiations on the paths: 13x13 with two
 # heads of 64 (path B, the 13x13 tournament) and with eight of 12 (the
 # no-gradient forwards of transformer_b_l and transformer_c_l), 9x9 with
 # heads of 32 (transformer_s, transformer_l), and the largest the kernel takes.
 K8_INSTANTIATIONS = ((169, 64), (169, 12), (81, 32), (192, 64))
+# (L, Dh) of K9's tensor-core instantiations on the paths: path B's update
+# (13x13, heads of 64) and the updates of transformer_s and transformer_l
+# (9x9, heads of 32).
+K9_INSTANTIATIONS = ((169, 64), (81, 32))
+INSTANTIATIONS = {"attn_packed_fwd": K8_INSTANTIATIONS, "attn_packed_bwd": K9_INSTANTIATIONS}
 # (B, L, H, Dh) at which every route through an attention kernel is timed:
 # the update minibatch, then the rollout batch of 384 at the registry's four
 # Dh < 32 shapes (9x9 or 13x13, four heads of 14 or eight of 12), a
@@ -376,7 +382,7 @@ def phase_attention(torch, dev):
                 for kernel in forwards:
                     fwd, fwd_ref = attn_kernel(kernel)
                     got[kernel] = {"o": fwd(q, k, v, *extra)}
-                    if kernel in TENSOR_CORE_FORWARDS and dtype == torch.bfloat16 and not torch.equal(
+                    if kernel in TENSOR_CORE_KERNELS and dtype == torch.bfloat16 and not torch.equal(
                             got[kernel]["o"], fwd(q, k, v, *extra)):
                         raise AssertionError(f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
                                              "two runs differ")
@@ -384,8 +390,19 @@ def phase_attention(torch, dev):
                     want[kernel] = {"o": fwd_ref(q, k, v, *extra)}
                 bwd, bwd_ref = attn_kernel(backward)
                 got[backward] = dict(zip(("dq", "dk", "dv"), bwd(q, k, v, do, *extra)))
+                tensor_cores = backward in TENSOR_CORE_KERNELS and dtype == torch.bfloat16
+                if tensor_cores:
+                    again = bwd(q, k, v, do, *extra)
+                    if not all(torch.equal(a, g) for a, g in zip(again, got[backward].values())):
+                        raise AssertionError(f"{backward} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
+                                             "two runs differ")
+                    # The first version, the FMA kernel, on the same bf16 inputs.
+                    got[f"{backward} first version"] = dict(
+                        zip(("dq", "dk", "dv"), bwd(q, k, v, do, *extra, kernel="fma")))
                 torch.cuda.synchronize()
                 want[backward] = dict(zip(("dq", "dk", "dv"), bwd_ref(q, k, v, do, *extra)))
+                if tensor_cores:
+                    want[f"{backward} first version"] = want[backward]
                 report = []
                 for kernel in got:
                     errs, share = [], 0.0
@@ -642,7 +659,7 @@ def time_attention(torch, dev, name, b, l, h, dh):
     plain_iters = 10 if b > 1024 else 30
     ms, call = timed(lambda: kernel(*args, *extra), name, 50)
     first = {}
-    if name in TENSOR_CORE_FORWARDS:  # the FMA kernel, the first version, on the same inputs
+    if name in TENSOR_CORE_KERNELS:  # the FMA kernel, the first version, on the same inputs
         first["first_version_ms"], first["first_version_call_ms"] = timed(
             lambda: kernel(*args, *extra, kernel="fma"), name, 50)
     plain, plain_call = timed(lambda: plain_version(*args, *extra), iters=plain_iters, warmup=3)
@@ -693,21 +710,21 @@ def attention_kernel_records(torch, dev, launches, attn_errors):
         record["at_rollout_batch"] = at[1]
         if len(at) > 2:
             record["at_tournament_batch"] = at[2]
-        if name == "attn_packed_fwd":
-            record["instantiations"] = k8_instantiations(torch, dev)
+        if name in INSTANTIATIONS:
+            record["instantiations"] = instantiations(torch, dev, name)
         records.append(record)
     return records
 
 
-def k8_instantiations(torch, dev):
-    """What each of K8's tensor-core instantiations on the paths takes on the
-    card (registers, spill bytes, shared memory, blocks an SM)."""
-    from rl_selfplay_mnk_tpu_torch.ops.attention import packed_fwd_mma_resources
+def instantiations(torch, dev, name):
+    """What each of K8's or K9's tensor-core instantiations on the paths takes
+    on the card (registers, spill bytes, shared memory, blocks an SM)."""
+    from rl_selfplay_mnk_tpu_torch.ops.attention import mma_resources
 
     out = []
-    for l, dh in K8_INSTANTIATIONS:
-        rec = {"L": l, "dh": dh, **packed_fwd_mma_resources(l, dh, dev)}
-        print(f"attn_packed_fwd tensor cores (L, Dh)=({l}, {dh}): {rec['registers']} registers, "
+    for l, dh in INSTANTIATIONS[name]:
+        rec = {"L": l, "dh": dh, **mma_resources(name.removeprefix("attn_"), l, dh, dev)}
+        print(f"{name} tensor cores (L, Dh)=({l}, {dh}): {rec['registers']} registers, "
               f"{rec['local_bytes']} local (spill) bytes a thread; {rec['heads_per_block']} heads, "
               f"{rec['smem_bytes']} bytes of shared memory a block; {rec['blocks_per_sm']} blocks an SM")
         out.append(rec)

@@ -47,9 +47,14 @@
 // (attn_packed_fwd_mma) is the same kernel on [token][channel] slabs, staged
 // by cp.async (see there).
 //
-// The other kernels here, and both forwards in f32 (a tensor-core product
-// of f32 data would round to TF32), do their products with FMA on the CUDA
-// cores out of shared memory, and that is what bounds them.
+// The packed backward in bf16 (attn_packed_bwd_mma) is in attention_bwd.cu,
+// built by its own nvcc; the pieces it shares with K3 and K8 are in
+// attn_mma.cuh.
+//
+// The other kernels here, and both forwards and the packed backward in f32
+// (a tensor-core product of f32 data would round to TF32), do their products
+// with FMA on the CUDA cores out of shared memory, and that is what bounds
+// them.
 //
 // Design of those: one block per (board, head). The head's q, k, v (and dO) sit in
 // shared memory as f32 rows whose stride is a multiple of four floats and an
@@ -72,6 +77,7 @@
 // wrapper (ops/attention.py) raises when it is not 0.
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -572,22 +578,6 @@ int packed_bwd(const void* q, const void* k, const void* v, const void* g, void*
 // The folded forward in bf16 on the tensor cores (K3's bf16 path)
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kMmaWarps = 4;       // warps of a block of attn_folded_fwd_mma
-constexpr int kMmaMaxHeads = 4;    // heads a block of it takes at most
-
-// The kernel is compiled for these counts of 16-token tiles and 16-channel
-// tiles; a head is padded with zeros up to the next one.
-__host__ __device__ inline int key_tiles(int L) {
-    const int kt = (L + 15) / 16;
-    return kt <= 4 ? kt : kt <= 6 ? 6 : kt <= 8 ? 8 : kt <= 11 ? 11 : 12;
-}
-__host__ __device__ inline int channel_tiles(int dh) {
-    const int dk = (dh + 15) / 16;
-    return dk <= 2 ? dk : 4;
-}
-
 // Shared memory of one block: `heads` heads' q, k and v as bf16 [dpad][ld],
 // dpad = 16 channel_tiles(Dh), ld = 16 key_tiles(L) + 8 (an odd number of
 // 16-byte words), all zero outside [Dh][L].
@@ -649,58 +639,6 @@ __device__ __forceinline__ void move_span(bf16* __restrict__ dev, bf16* smem, in
             }
         }
     }
-}
-
-// Softmax of a warp's 16 query rows, whose scores s are the C fragments of
-// S = Q . K^T over kNT 8-key tiles: rows g (s[.][0..1]) and g + 8 (s[.][2..3]).
-// In f32 with the arithmetic of softmax_rows: x = s * scale, key columns past
-// the board get x = -inf (p = 0; the lane's column 8j + tc + c is a token iff
-// 8j + c < live_cols = L - tc), s becomes exp(x - max) in place and rinv
-// 1 / sum for each of the lane's two rows. Max and sum go by quad shuffles.
-template <int kNT>
-__device__ __forceinline__ void softmax_fragments(float (&s)[kNT][4], int live_cols, float scale,
-                                                  float (&rinv)[2]) {
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            s[j][e] = j * 8 + (e & 1) < live_cols ? __fmul_rn(s[j][e], scale) : -INFINITY;
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
-    }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            s[j][e] = expf(__fsub_rn(s[j][e], mx[e >> 1]));
-            sum[e >> 1] += s[j][e];
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
-        sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
-        rinv[r] = __frcp_rn(sum[r]);
-    }
-}
-
-// p = exp(x - max) * (1 / sum) of keys 16 jt .. 16 jt + 15, rounded to bf16,
-// as the A fragment of O = P . V, straight from softmax_fragments' registers.
-template <int kNT>
-__device__ __forceinline__ void probability_fragment(uint32_t (&pa)[4], const float (&s)[kNT][4],
-                                                     int jt, const float (&rinv)[2]) {
-    const int lo = 2 * jt, hi = 2 * jt + 1;
-    pa[0] = pack_bf16(__fmul_rn(s[lo][0], rinv[0]), __fmul_rn(s[lo][1], rinv[0]));
-    pa[1] = pack_bf16(__fmul_rn(s[lo][2], rinv[1]), __fmul_rn(s[lo][3], rinv[1]));
-    pa[2] = pack_bf16(__fmul_rn(s[hi][0], rinv[0]), __fmul_rn(s[hi][1], rinv[0]));
-    pa[3] = pack_bf16(__fmul_rn(s[hi][2], rinv[1]), __fmul_rn(s[hi][3], rinv[1]));
 }
 
 // kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:
@@ -765,8 +703,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_fold
             }
         }
 
-        float rinv[2];
-        softmax_fragments(s, L - tc, scale, rinv);
+        float mx[2], rinv[2];
+        softmax_fragments(s, L - tc, scale, mx, rinv);
 
         // O = round(P) . V: the rounded probabilities of keys 16jt .. 16jt+15
         // are the A fragment, straight from registers; B = V (depth j,
@@ -821,36 +759,6 @@ int folded_fwd_mma(const void* q, const void* k, const void* v, void* o, int BH,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of a tensor-core kernel for a head of L tokens and dh
-// channels: f(Tiles<key_tiles(L)>{}, Tiles<channel_tiles(dh)>{}).
-template <int N>
-struct Tiles {
-    static constexpr int value = N;
-};
-
-template <int kKT, typename F>
-int for_channel_tiles(int dh, const F& f) {
-    switch (channel_tiles(dh)) {
-        case 1: return f(Tiles<kKT>{}, Tiles<1>{});
-        case 2: return f(Tiles<kKT>{}, Tiles<2>{});
-        default: return f(Tiles<kKT>{}, Tiles<4>{});
-    }
-}
-
-template <typename F>
-int for_tiles(int L, int dh, const F& f) {
-    switch (key_tiles(L)) {
-        case 1: return for_channel_tiles<1>(dh, f);
-        case 2: return for_channel_tiles<2>(dh, f);
-        case 3: return for_channel_tiles<3>(dh, f);
-        case 4: return for_channel_tiles<4>(dh, f);
-        case 6: return for_channel_tiles<6>(dh, f);
-        case 8: return for_channel_tiles<8>(dh, f);
-        case 11: return for_channel_tiles<11>(dh, f);
-        default: return for_channel_tiles<12>(dh, f);
-    }
-}
-
 // ---------------------------------------------------------------------------
 // The packed forward in bf16 on the tensor cores (K8's bf16 path)
 // ---------------------------------------------------------------------------
@@ -879,82 +787,6 @@ __host__ __device__ inline size_t packed_mma_smem_bytes(int L, int dh, int heads
            * padded_row_elems(16 * channel_tiles(dh)) * sizeof(bf16);
 }
 
-template <int kBytes> struct WordOf;
-template <> struct WordOf<16> { using type = uint4; };
-template <> struct WordOf<8> { using type = uint2; };
-template <> struct WordOf<4> { using type = uint32_t; };
-template <> struct WordOf<2> { using type = uint16_t; };
-
-// The widest word, 16 bytes at most, that divides a head row's 2 Dh bytes
-// and every tensor's address: each head row then starts on a word.
-int packed_word_bytes(const void* q, const void* k, const void* v, const void* o, int dh) {
-    const uintptr_t all = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
-                          | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)
-                          | static_cast<uintptr_t>(2 * dh);
-    int bytes = 16;
-    while (bytes > 2 && (all & (bytes - 1)) != 0) bytes >>= 1;
-    return bytes;
-}
-
-// Element offset of head n's row 0 in a packed tensor.
-__device__ __forceinline__ size_t packed_head_base(int n, int L, int H, int dh) {
-    const int b = n / H;
-    return static_cast<size_t>(b) * L * H * dh + static_cast<size_t>(n - b * H) * dh;
-}
-
-// The block's nh heads of q, k and v -> their shared slabs, in words of
-// kBytes. A slab row's 16 kDK channels are a power of two of words that
-// divides the block's threads, so a thread keeps one word column and walks
-// the rows. Rows >= L and words past the head's Dh channels are zeroed. The
-// copies stay in flight until the caller's cp_async_wait_all.
-template <int kKT, int kDK, int kBytes>
-__device__ __forceinline__ void stage_packed(const bf16* const (&src)[3], bf16* smem, int head0,
-                                             int nh, int L, int H, int dh) {
-    using Word = typename WordOf<kBytes>::type;
-    constexpr int kLd = 16 * kDK + 8, kSlab = 16 * kKT * kLd;
-    constexpr int kWords = 32 * kDK / kBytes, kElems = kBytes / 2;
-    constexpr int kRowStep = kMmaWarps * 32 / kWords;
-    const int w = threadIdx.x % kWords, live = 2 * dh / kBytes;
-    const size_t D = static_cast<size_t>(H) * dh;
-    for (int hl = 0; hl < nh; ++hl) {
-        const size_t base = packed_head_base(head0 + hl, L, H, dh) + w * kElems;
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-            const bf16* from = src[t] + base;
-            bf16* to = smem + (3 * hl + t) * kSlab + w * kElems;
-            for (int l = threadIdx.x / kWords; l < 16 * kKT; l += kRowStep) {
-                bf16* at = to + l * kLd;
-                if (l < L && w < live) {
-                    if constexpr (kBytes == 16) cp_async_16(shared_address(at), from + l * D);
-                    else if constexpr (kBytes == 2) *at = from[l * D];
-                    else cp_async_small<kBytes>(shared_address(at), from + l * D);
-                } else {
-                    *reinterpret_cast<Word*>(at) = Word{};
-                }
-            }
-        }
-    }
-}
-
-// O's rows [0, L) of the block's heads, from q's slabs, out to o.
-template <int kKT, int kDK, int kBytes>
-__device__ __forceinline__ void store_packed(bf16* __restrict__ o, const bf16* smem, int head0,
-                                             int nh, int L, int H, int dh) {
-    using Word = typename WordOf<kBytes>::type;
-    constexpr int kLd = 16 * kDK + 8, kSlab = 16 * kKT * kLd;
-    constexpr int kWords = 32 * kDK / kBytes, kElems = kBytes / 2;
-    constexpr int kRowStep = kMmaWarps * 32 / kWords;
-    const int w = threadIdx.x % kWords;
-    if (w >= 2 * dh / kBytes) return;
-    const size_t D = static_cast<size_t>(H) * dh;
-    for (int hl = 0; hl < nh; ++hl) {
-        bf16* to = o + packed_head_base(head0 + hl, L, H, dh) + w * kElems;
-        const bf16* from = smem + 3 * hl * kSlab + w * kElems;
-        for (int l = threadIdx.x / kWords; l < L; l += kRowStep)
-            *reinterpret_cast<Word*>(to + l * D) = *reinterpret_cast<const Word*>(from + l * kLd);
-    }
-}
-
 // kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:
 // 16-channel tiles (key_tiles, channel_tiles); word_bytes from
 // packed_word_bytes.
@@ -974,10 +806,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_pack
     const bf16* const src[3] = {q, k, v};
 
     switch (word_bytes) {
-        case 16: stage_packed<kKT, kDK, 16>(src, smem, head0, nh, L, H, dh); break;
-        case 8: stage_packed<kKT, kDK, 8>(src, smem, head0, nh, L, H, dh); break;
-        case 4: stage_packed<kKT, kDK, 4>(src, smem, head0, nh, L, H, dh); break;
-        default: stage_packed<kKT, kDK, 2>(src, smem, head0, nh, L, H, dh); break;
+        case 16: stage_packed<kKT, kDK, 16, 3>(src, smem, head0, nh, L, H, dh); break;
+        case 8: stage_packed<kKT, kDK, 8, 3>(src, smem, head0, nh, L, H, dh); break;
+        case 4: stage_packed<kKT, kDK, 4, 3>(src, smem, head0, nh, L, H, dh); break;
+        default: stage_packed<kKT, kDK, 2, 3>(src, smem, head0, nh, L, H, dh); break;
     }
     cp_async_wait_all();
     __syncthreads();
@@ -1019,8 +851,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_pack
             }
         }
 
-        float rinv[2];
-        softmax_fragments(s, L - tc, scale, rinv);
+        float mx[2], rinv[2];
+        softmax_fragments(s, L - tc, scale, mx, rinv);
 
         // O = round(P) . V: B = V (depth j, columns d) from v's [j][d] rows:
         // ldmatrix.trans.
@@ -1055,27 +887,18 @@ __global__ void __launch_bounds__(kMmaWarps * 32, (kKT >= 11 ? 3 : 4)) attn_pack
     }
     __syncthreads();
     switch (word_bytes) {
-        case 16: store_packed<kKT, kDK, 16>(o, smem, head0, nh, L, H, dh); break;
-        case 8: store_packed<kKT, kDK, 8>(o, smem, head0, nh, L, H, dh); break;
-        case 4: store_packed<kKT, kDK, 4>(o, smem, head0, nh, L, H, dh); break;
-        default: store_packed<kKT, kDK, 2>(o, smem, head0, nh, L, H, dh); break;
+        case 16: store_packed<kKT, kDK, 16, 3>(o, smem, head0, nh, L, H, dh); break;
+        case 8: store_packed<kKT, kDK, 8, 3>(o, smem, head0, nh, L, H, dh); break;
+        case 4: store_packed<kKT, kDK, 4, 3>(o, smem, head0, nh, L, H, dh); break;
+        default: store_packed<kKT, kDK, 2, 3>(o, smem, head0, nh, L, H, dh); break;
     }
 }
 
-// Once per instantiation: the card's whole per-block shared memory, and the
-// largest shared-memory carveout, so that as many blocks share an SM as fit.
+// Once per instantiation: see mma_setup.
 template <int kKT, int kDK>
 cudaError_t packed_fwd_mma_setup() {
     static bool done = false;
-    if (done) return cudaSuccess;
-    bool allowed = false;
-    cudaError_t err = allow_large_smem(attn_packed_fwd_mma<kKT, kDK>, allowed);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(attn_packed_fwd_mma<kKT, kDK>,
-                                   cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   cudaSharedmemCarveoutMaxShared);
-    done = err == cudaSuccess;
-    return err;
+    return mma_setup(attn_packed_fwd_mma<kKT, kDK>, done);
 }
 
 template <int kKT, int kDK>
@@ -1085,10 +908,11 @@ int packed_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_heads = B * H;
     const int blocks = static_cast<int>((static_cast<long long>(n_heads) + heads - 1) / heads);
+    const void* const tensors[] = {q, k, v, o};
     attn_packed_fwd_mma<kKT, kDK><<<blocks, kMmaWarps * 32, packed_mma_smem_bytes(L, dh, heads),
                                     stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), n_heads, L, H, dh, heads, packed_word_bytes(q, k, v, o, dh),
+        static_cast<bf16*>(o), n_heads, L, H, dh, heads, packed_word_bytes(tensors, dh),
         1.0f / sqrtf(static_cast<float>(dh)));
     return static_cast<int>(cudaGetLastError());
 }
@@ -1098,18 +922,10 @@ int packed_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, 
 template <int kKT, int kDK>
 int packed_fwd_mma_resources(int L, int dh, int heads, int* registers, int* local_bytes,
                              int* blocks_per_sm) {
-    cudaError_t err = packed_fwd_mma_setup<kKT, kDK>();
-    cudaFuncAttributes attr;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, attn_packed_fwd_mma<kKT, kDK>);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, attn_packed_fwd_mma<kKT, kDK>, kMmaWarps * 32,
-            packed_mma_smem_bytes(L, dh, heads));
-    if (err == cudaSuccess) {
-        *registers = attr.numRegs;
-        *local_bytes = static_cast<int>(attr.localSizeBytes);
-    }
-    return static_cast<int>(err);
+    const cudaError_t err = packed_fwd_mma_setup<kKT, kDK>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return mma_resources(attn_packed_fwd_mma<kKT, kDK>, packed_mma_smem_bytes(L, dh, heads),
+                         registers, local_bytes, blocks_per_sm);
 }
 
 }  // namespace

@@ -30,9 +30,12 @@ On the H100 both directions are bound by bytes at the models' shapes. The
 bf16 folded and packed forwards (K3, ``folded_fwd_kernel_for``; K8,
 ``packed_fwd_kernel_for``) do their two products on the tensor cores
 (``mma.sync``), a warp per 16 query rows with the scores and probabilities
-in registers. The other kernels, and K3 and K8 in f32, hold a head or a
-board in shared memory (``csrc/attention.cu``, ``csrc/attention_board.cu``)
-and do their products with FMA on the CUDA cores, which bound them for now.
+in registers; so does the bf16 packed backward (K9,
+``packed_bwd_kernel_for``; ``csrc/attention_bwd.cu``), a warp per 16 query
+rows and then per 16 key rows. The other kernels, and K3, K8 and K9 in f32,
+hold a head or a board in shared memory (``csrc/attention.cu``,
+``csrc/attention_board.cu``) and do their products with FMA on the CUDA
+cores, which bound them for now.
 
 The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
 ``attention_packed_fwd``, ``attention_packed_bwd``,
@@ -196,7 +199,22 @@ def _lib():
     return lib
 
 
-def _fwd_kernel_for(name: str, dtype: torch.dtype) -> str:
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    """``csrc/attention_bwd.cu``: the tensor-core K9, built beside
+    ``attention.cu`` by its own nvcc."""
+    lib = load_library("attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attn_packed_bwd_mma_launch.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
+    lib.attn_packed_bwd_mma_smem_bytes.argtypes = [i] * 3
+    lib.attn_packed_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.attn_packed_bwd_mma_resources.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
+    for fn in (lib.attn_packed_bwd_mma_launch, lib.attn_packed_bwd_mma_resources):
+        fn.restype = i
+    return lib
+
+
+def _kernel_for(name: str, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "mma"
     if dtype == torch.float32:
@@ -207,52 +225,69 @@ def _fwd_kernel_for(name: str, dtype: torch.dtype) -> str:
 def folded_fwd_kernel_for(dtype: torch.dtype) -> str:
     """The kernel K3 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
     ``"fma"`` (the CUDA cores) for f32."""
-    return _fwd_kernel_for("attention_folded_fwd", dtype)
+    return _kernel_for("attention_folded_fwd", dtype)
 
 
 def packed_fwd_kernel_for(dtype: torch.dtype) -> str:
     """The kernel K8 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
     ``"fma"`` (the CUDA cores) for f32, whose products on the tensor cores
     would round to TF32."""
-    return _fwd_kernel_for("attention_packed_fwd", dtype)
+    return _kernel_for("attention_packed_fwd", dtype)
 
 
-_MMA_MAX_HEADS = 4  # csrc/attention.cu kMmaMaxHeads
-_MMA_HEADS_SMEM = 64 * 1024  # a block of a tensor-core forward takes heads up to this much
+def packed_bwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K9 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, as K8."""
+    return _kernel_for("attention_packed_bwd", dtype)
+
+
+_MMA_MAX_HEADS = 4  # csrc/attn_mma.cuh kMmaMaxHeads
+# A block of a tensor-core kernel takes heads while they fit this much shared
+# memory: three or more blocks an SM for the forwards; three for K9 where a
+# head is small (two heads of (81, 32)), while its (169, 64) head alone takes
+# 101 KiB (two blocks an SM).
+_MMA_HEADS_SMEM = {"folded_fwd": 64 * 1024, "packed_fwd": 64 * 1024, "packed_bwd": 74 * 1024}
+
+
+def _mma_entry(kernel: str, what: str):
+    """``attn_<kernel>_mma_<what>`` of a tensor-core kernel's library: K9's
+    own, or that of ``attention.cu``."""
+    lib = _bwd_lib() if kernel == "packed_bwd" else _lib()
+    return getattr(lib, f"attn_{kernel}_mma_{what}")
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_heads(layout: str, l: int, dh: int, device: torch.device) -> int:
-    """Heads a block of the tensor-core K3 (``layout`` "folded") or K8
-    ("packed") takes: up to four, while their q, k and v fit in 64 KiB of
-    shared memory (three or more blocks an SM), and one where a single head
-    needs more."""
+def _mma_heads(kernel: str, l: int, dh: int, device: torch.device) -> int:
+    """Heads a block of the tensor-core K3 (``kernel`` "folded_fwd"), K8
+    ("packed_fwd") or K9 ("packed_bwd") takes: up to four, while their slabs
+    fit ``_MMA_HEADS_SMEM[kernel]``, and one where a single head needs more."""
     lib = _lib()
     if l > lib.attn_max_tokens() or dh > lib.attn_max_head_dim():
         raise KernelError(
             f"attention: L={l}, Dh={dh} is beyond the kernel's "
             f"L <= {lib.attn_max_tokens()}, Dh <= {lib.attn_max_head_dim()}"
         )
-    one = getattr(lib, f"attn_{layout}_fwd_mma_smem_bytes")(l, dh, 1)
+    one = _mma_entry(kernel, "smem_bytes")(l, dh, 1)
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if one > limit:
-        raise KernelError(f"attention forward: L={l}, Dh={dh} needs {one} bytes of shared "
+        raise KernelError(f"attention {kernel}: L={l}, Dh={dh} needs {one} bytes of shared "
                           f"memory per block, the card allows {limit}")
-    return max(1, min(_MMA_MAX_HEADS, _MMA_HEADS_SMEM // one))
+    return max(1, min(_MMA_MAX_HEADS, _MMA_HEADS_SMEM[kernel] // one))
 
 
-def packed_fwd_mma_resources(l: int, dh: int, device: torch.device) -> dict:
-    """What the tensor-core K8 for heads of (L, Dh) takes on the card: the
-    registers and local (spill) bytes of a thread, the heads and shared bytes
-    of a block, and the blocks that fit an SM."""
-    lib = _lib()
-    heads = _mma_heads("packed", l, dh, device)
+def mma_resources(kernel: str, l: int, dh: int, device: torch.device) -> dict:
+    """What the tensor-core K8 (``kernel`` "packed_fwd") or K9 ("packed_bwd")
+    for heads of (L, Dh) takes on the card: the registers and local (spill)
+    bytes of a thread, the heads and shared bytes of a block, and the blocks
+    that fit an SM."""
+    entry = _mma_entry(kernel, "resources")
+    heads = _mma_heads(kernel, l, dh, device)
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        check_launch("attn_packed_fwd_mma_resources", lib.attn_packed_fwd_mma_resources(
+        check_launch(entry.__name__, entry(
             l, dh, heads, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)))
     return {"registers": regs.value, "local_bytes": local.value, "heads_per_block": heads,
-            "smem_bytes": lib.attn_packed_fwd_mma_smem_bytes(l, dh, heads),
+            "smem_bytes": _mma_entry(kernel, "smem_bytes")(l, dh, heads),
             "blocks_per_sm": blocks.value}
 
 
@@ -413,7 +448,7 @@ def attention_folded_fwd(q, k, v, kernel: str | None = None):
                        (bh, dh, l))[0]
     _checked("attention_folded_fwd", tensors)
     return _run(attention_folded_fwd, _lib().attn_folded_fwd_mma_launch, tensors, 1,
-                (bh, dh, l, _mma_heads("folded", l, dh, q.device)))[0]
+                (bh, dh, l, _mma_heads("folded_fwd", l, dh, q.device)))[0]
 
 
 def attention_folded_bwd(q, k, v, do):
@@ -443,16 +478,28 @@ def attention_packed_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
                        dims)[0]
     _checked("attention_packed_fwd", tensors)
     return _run(attention_packed_fwd, _lib().attn_packed_fwd_mma_launch, tensors, 1,
-                (*dims, _mma_heads("packed", dims[1], dh, q.device)))[0]
+                (*dims, _mma_heads("packed_fwd", dims[1], dh, q.device)))[0]
 
 
-def attention_packed_bwd(q, k, v, do, h: int, dh: int):
-    """K9: q, k, v, do (B, L, H*Dh) -> dq, dk, dv (B, L, H*Dh)."""
+def attention_packed_bwd(q, k, v, do, h: int, dh: int, kernel: str | None = None):
+    """K9: q, k, v, do (B, L, H*Dh), bf16 or f32 -> dq, dk, dv (B, L, H*Dh).
+
+    On the card it launches ``packed_bwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
+    which chip_smoke.py times beside the tensor-core kernel)."""
     if not _on_card("attention_packed_bwd", q):
         return attention_packed_bwd_reference(q, k, v, do, h, dh)
     dims = _packed_dims("attention_packed_bwd", q, h, dh)
-    return tuple(_launch(attention_packed_bwd, "attn_packed_bwd_launch", True,
-                         {"q": q, "k": k, "v": v, "do": do}, dims[1], dh, dims))
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    default = packed_bwd_kernel_for(q.dtype)
+    if kernel not in (None, default, "fma"):
+        raise ValueError(f"attention_packed_bwd: no {kernel!r} kernel for {q.dtype}")
+    if (kernel or default) == "fma":
+        return tuple(_launch(attention_packed_bwd, "attn_packed_bwd_launch", True, tensors, dims[1],
+                             dh, dims))
+    _checked("attention_packed_bwd", tensors)
+    return tuple(_run(attention_packed_bwd, _bwd_lib().attn_packed_bwd_mma_launch, tensors, 3,
+                      (*dims, _mma_heads("packed_bwd", dims[1], dh, q.device))))
 
 
 def attention_lane_slice_fwd(q, k, v, h: int, dh: int):

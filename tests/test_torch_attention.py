@@ -5,7 +5,7 @@ same numpy arrays: the folded and the packed pair, forward and backward,
 the dispatch, then the one-block-per-board kernels' plain versions (lane
 slice, in-kernel fold), ``attention_infold`` against ``jax.grad`` and the
 dispatch's choice of route. Float32 on the CPU, and bf16 to pin where p
-and ds are rounded, in the folded pair and in the packed forward."""
+and ds are rounded, in the folded pair and in the packed pair."""
 
 import jax
 import jax.numpy as jnp
@@ -199,6 +199,56 @@ def test_packed_forward_on_cpu_tensors_is_the_plain_version_for_any_kernel(kerne
     got = tattn.attention_packed_fwd(*xs, 2, 32, kernel=kernel)
     assert tattn.attention_packed_fwd.launches == before
     assert torch.equal(got, tattn.attention_packed_reference(*xs, 2, 32))
+
+
+@pytest.mark.parametrize("b,l,h,dh", [(2, 25, 2, 64), (2, 25, 4, 14)])
+def test_packed_bwd_bf16_rounding_points_match_pallas_interpret(b, l, h, dh):
+    """The packed backward with bf16 inputs: row = rowsum(dp * p) over the f32
+    p, ds rounded to bf16 before dq and dk, p rounded to bf16 before dv, and
+    the outputs to bf16, as ``_packed_bwd_kernel`` does. Held against it in
+    interpret mode within two bf16 ulps of the result's size, as the forward
+    above; the tensor-core K9 follows these rounding points."""
+    xs = arrays(20, (b, l, h * dh), 4)
+    ts = to_torch(xs, torch.bfloat16)
+    js = [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+    want = jattn._attention_packed_bwd_pallas(*js, h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_packed_bwd_reference(*ts, h, dh)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   rtol=2.0**-7, atol=2.0**-7)
+    # The rounding points themselves: with ds left in f32, dq and dk are
+    # other ones; with p left in f32, dv is another one.
+    q, k, v, do = (tattn._packed_to_heads(t, h, dh).float() for t in ts)
+    p = tattn._probabilities_reference(q, k)
+    dp = torch.matmul(do, v.transpose(1, 2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) / dh**0.5
+
+    def packed(t):
+        return tattn._heads_to_packed(t.to(torch.bfloat16), b, h)
+
+    assert not torch.equal(packed(torch.matmul(ds, k)), got[0])
+    assert not torch.equal(packed(torch.matmul(ds.transpose(1, 2), q)), got[1])
+    assert not torch.equal(packed(torch.matmul(p.transpose(1, 2), do)), got[2])
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_packed_backward_kernel_follows_the_dtype(dtype, kernel):
+    """K9 takes the tensor-core kernel for bf16 and the FMA kernel (its first
+    version) for f32, whose products on the tensor cores would round to TF32."""
+    assert tattn.packed_bwd_kernel_for(dtype) == kernel
+    with pytest.raises(ValueError, match="attention_packed_bwd: unsupported dtype"):
+        tattn.packed_bwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "fma"])
+def test_packed_backward_on_cpu_tensors_is_the_plain_version_for_any_kernel(kernel):
+    xs = to_torch(arrays(21, (2, 9, 2 * 32), 4), torch.bfloat16)
+    before = tattn.attention_packed_bwd.launches
+    got = tattn.attention_packed_bwd(*xs, 2, 32, kernel=kernel)
+    assert tattn.attention_packed_bwd.launches == before
+    for g, w in zip(got, tattn.attention_packed_bwd_reference(*xs, 2, 32)):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------

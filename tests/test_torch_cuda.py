@@ -268,6 +268,40 @@ def test_packed_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry
     assert spy.launched == [entry]
 
 
+# The tensor-core packed backward (K9 in bf16), at the forward's cases: every
+# token count of the registry's boards up to the kernel's limit, head widths
+# of 64 and 32 and of 12 and 14 (rows not whole 16-byte words); five boards,
+# so that the last block of several heads is short where the count allows it.
+@pytest.mark.parametrize("l", [9, 81, 169, 192])
+@pytest.mark.parametrize("h,dh", [(2, 64), (4, 64), (3, 32), (8, 12), (4, 14)])
+def test_packed_backward_tensor_cores_within_tolerance(device, l, h, dh):
+    b = 5
+    q, k, v, do = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True)
+    before = attn.attention_packed_bwd.launches
+    got = attn.attention_packed_bwd(q, k, v, do, h, dh)
+    again = attn.attention_packed_bwd(q, k, v, do, h, dh)
+    torch.cuda.synchronize()
+    assert attn.attention_packed_bwd.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), \
+        "the tensor-core backward is not deterministic"
+    want = attn.attention_packed_bwd_reference(q, k, v, do, h, dh)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert_attn_close(g, w, torch.bfloat16, name)
+    for name, g, w in zip(("dq", "dk", "dv"), attn.attention_packed_bwd(q, k, v, do, h, dh,
+                                                                       kernel="fma"), want):
+        assert_attn_close(g, w, torch.bfloat16, f"fma {name}")
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "attn_packed_bwd_mma_launch"),
+                                         (torch.float32, "attn_packed_bwd_launch")])
+def test_packed_backward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry):
+    spies = EntrySpy(attn._lib()), EntrySpy(attn._bwd_lib())
+    monkeypatch.setattr(attn, "_lib", lambda: spies[0])
+    monkeypatch.setattr(attn, "_bwd_lib", lambda: spies[1])
+    attn.attention_packed_bwd(*attn_inputs(device, dtype, 8, 169, 2, 64, packed=True), 2, 64)
+    assert spies[0].launched + spies[1].launched == [entry]
+
+
 def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):
     """f32 at 13x13, d96: five slabs of the whole board exceed a block's
     shared memory, so the backward takes the heads in groups; same result."""
@@ -358,3 +392,7 @@ def test_attention_raises_beyond_the_kernels_limits(device):
     q = torch.zeros((2, 9, 128), device=device)
     with pytest.raises(KernelError):
         attn.attention_packed_fwd(q, q, q, 1, 128)
+    for q in (torch.zeros((2, 9, 128), device=device, dtype=torch.bfloat16),
+              torch.zeros((2, 200, 64), device=device, dtype=torch.bfloat16)):
+        with pytest.raises(KernelError):
+            attn.attention_packed_bwd(q, q, q, q, 1, q.shape[2])

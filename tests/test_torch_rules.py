@@ -293,7 +293,7 @@ def test_train_mnk_stops_on_kernel_errors_only(monkeypatch, tmp_path, error, sto
 CSRC = REPO / "rl_selfplay_mnk_tpu_torch" / "csrc"
 # What the tensor-core kernels may include: the CUDA runtime's own headers and the port's.
 KERNEL_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "attn_common.cuh",
-                   "mma_common.cuh"}
+                   "mma_common.cuh", "attn_mma.cuh"}
 LIBRARY_KERNEL_NAMES = ("cublas", "cudnn", "cutlass", "cute::", "cufft", "cusparse", "thrust",
                         "cub::", "torch", "aten", "c10", "scaled_dot_product", "flash")
 
@@ -304,11 +304,12 @@ def code_of(path):
     return re.sub(r"//[^\n]*", "", text)
 
 
-@pytest.mark.parametrize("name", ["resblock.cu", "attention.cu", "mma_common.cuh"])
+@pytest.mark.parametrize("name", ["resblock.cu", "attention.cu", "attention_bwd.cu",
+                                  "mma_common.cuh", "attn_mma.cuh"])
 def test_tensor_core_sources_call_no_library_kernel(name):
-    """The bf16 K2 and K3 compute inside their own bodies: no header beyond
-    CUDA's runtime ones and the port's, no library GEMM, convolution or
-    attention, and the products are the port's own ``mma.sync`` wrapper."""
+    """The bf16 K2, K3, K8 and K9 compute inside their own bodies: no header
+    beyond CUDA's runtime ones and the port's, no library GEMM, convolution
+    or attention, and the products are the port's own ``mma.sync`` wrapper."""
     code = code_of(CSRC / name)
     includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', code))
     assert includes <= KERNEL_INCLUDES, f"{name} includes {sorted(includes - KERNEL_INCLUDES)}"
@@ -318,5 +319,7 @@ def test_tensor_core_sources_call_no_library_kernel(name):
     if name.endswith(".cu"):
         assert '#include "mma_common.cuh"' in code
         assert code.count("mma_bf16_16816(") >= 2 and "ldmatrix_x4" in code
-    else:
+    elif name == "mma_common.cuh":
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    else:
+        assert '#include "mma_common.cuh"' in code
