@@ -24,9 +24,10 @@ Phases, in order; any failure exits non-zero:
    in-kernel-fold forward and backward, a block per board) against their
    plain versions, bf16 and f32, at the shapes the paths give them (update
    minibatch, rollout and validation batch, a tournament half-pairing) and
-   at odd, small and wide ones, within the stated tolerances; K3, K8 and K9
-   in bf16 (the tensor-core kernels) run twice: the same bits; K9's first,
-   FMA version on bf16 is held to the same limit;
+   at odd, small and wide ones, within the stated tolerances; K3, K5, K6,
+   K8 and K9 in bf16 (the tensor-core kernels) run twice: the same bits;
+   their first, FMA versions on the same bf16 inputs are held to the same
+   limit;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -66,10 +67,11 @@ Phases, in order; any failure exits non-zero:
    kernels: its forward, and forward plus backward beside the backward
    kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
    minibatch and at the rollout batch of 384, K5-K7 also at a tournament
-   half-pairing of 16; K2, K3, K8 and K9 in bf16 also through their first
-   version, the FMA kernel (``first_version_ms``); K8's and K9's tensor-core
-   instantiations on the paths with their registers, spill bytes and blocks
-   an SM; the
+   half-pairing of 16; K2, K3, K5, K6, K8 and K9 in bf16 also through their
+   first version, the FMA kernel (``first_version_ms``); the tensor-core
+   instantiations of K5, K6, K8 and K9 on the paths with their registers,
+   spill bytes and blocks an SM, and for K5 and K6 the block's unit of work
+   at each timed batch; the
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
    lane slice) at the 9x9 and 13x13 batches of either kind, layout
    operations included, for the dispatch (the ``threshold`` line); one
@@ -146,7 +148,8 @@ ATTN_KERNELS = {
     "attn_packed_bwd": ("packed", True, f"{PALLAS}:575", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
 }
 # The attention kernels that run on the tensor cores in bf16.
-TENSOR_CORE_KERNELS = ("attn_folded_fwd", "attn_packed_fwd", "attn_packed_bwd")
+TENSOR_CORE_KERNELS = ("attn_folded_fwd", "attn_packed_fwd", "attn_packed_bwd",
+                       "attn_lane_slice_fwd", "attn_infold_fwd")
 # (L, Dh) of K8's tensor-core instantiations on the paths: 13x13 with two
 # heads of 64 (path B, the 13x13 tournament) and with eight of 12 (the
 # no-gradient forwards of transformer_b_l and transformer_c_l), 9x9 with
@@ -156,7 +159,14 @@ K8_INSTANTIATIONS = ((169, 64), (169, 12), (81, 32), (192, 64))
 # (13x13, heads of 64) and the updates of transformer_s and transformer_l
 # (9x9, heads of 32).
 K9_INSTANTIATIONS = ((169, 64), (81, 32))
-INSTANTIATIONS = {"attn_packed_fwd": K8_INSTANTIATIONS, "attn_packed_bwd": K9_INSTANTIATIONS}
+# (L, H, Dh) of K5's and K6's tensor-core instantiations on the paths: the
+# 9x9 models (four heads of 14), 13x13 with four heads of 14 (K5 takes it:
+# 676 head rows a board), 13x13 with eight heads of 12 (the board shapes and
+# K6's forced route) and the 3x3 board.
+BOARD_INSTANTIATIONS = ((81, 4, 14), (169, 4, 14), (169, 8, 12), (9, 4, 14))
+INSTANTIATIONS = {"attn_packed_fwd": K8_INSTANTIATIONS, "attn_packed_bwd": K9_INSTANTIATIONS,
+                  "attn_lane_slice_fwd": BOARD_INSTANTIATIONS,
+                  "attn_infold_fwd": BOARD_INSTANTIATIONS}
 # (B, L, H, Dh) at which every route through an attention kernel is timed:
 # the update minibatch, then the rollout batch of 384 at the registry's four
 # Dh < 32 shapes (9x9 or 13x13, four heads of 14 or eight of 12), a
@@ -382,12 +392,17 @@ def phase_attention(torch, dev):
                 for kernel in forwards:
                     fwd, fwd_ref = attn_kernel(kernel)
                     got[kernel] = {"o": fwd(q, k, v, *extra)}
-                    if kernel in TENSOR_CORE_KERNELS and dtype == torch.bfloat16 and not torch.equal(
-                            got[kernel]["o"], fwd(q, k, v, *extra)):
-                        raise AssertionError(f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
-                                             "two runs differ")
+                    first = kernel in TENSOR_CORE_KERNELS and dtype == torch.bfloat16
+                    if first:
+                        if not torch.equal(got[kernel]["o"], fwd(q, k, v, *extra)):
+                            raise AssertionError(f"{kernel} {name} (B, L, H, Dh)={(b, l, h, dh)}: "
+                                                 "two runs differ")
+                        # The first version, the FMA kernel, on the same bf16 inputs.
+                        got[f"{kernel} first version"] = {"o": fwd(q, k, v, *extra, kernel="fma")}
                     torch.cuda.synchronize()
                     want[kernel] = {"o": fwd_ref(q, k, v, *extra)}
+                    if first:
+                        want[f"{kernel} first version"] = want[kernel]
                 bwd, bwd_ref = attn_kernel(backward)
                 got[backward] = dict(zip(("dq", "dk", "dv"), bwd(q, k, v, do, *extra)))
                 tensor_cores = backward in TENSOR_CORE_KERNELS and dtype == torch.bfloat16
@@ -717,16 +732,36 @@ def attention_kernel_records(torch, dev, launches, attn_errors):
 
 
 def instantiations(torch, dev, name):
-    """What each of K8's or K9's tensor-core instantiations on the paths takes
-    on the card (registers, spill bytes, shared memory, blocks an SM)."""
-    from rl_selfplay_mnk_tpu_torch.ops.attention import mma_resources
+    """What each tensor-core instantiation on the paths of K5, K6, K8 or K9
+    takes on the card (registers, spill bytes, shared memory, blocks an SM);
+    for K5 and K6 also the block's unit of work at each batch the kernel is
+    timed at."""
+    from rl_selfplay_mnk_tpu_torch.ops.attention import board_mma_plan, mma_resources
 
+    kernel = name.removeprefix("attn_")
     out = []
-    for l, dh in INSTANTIATIONS[name]:
-        rec = {"L": l, "dh": dh, **mma_resources(name.removeprefix("attn_"), l, dh, dev)}
-        print(f"{name} tensor cores (L, Dh)=({l}, {dh}): {rec['registers']} registers, "
-              f"{rec['local_bytes']} local (spill) bytes a thread; {rec['heads_per_block']} heads, "
-              f"{rec['smem_bytes']} bytes of shared memory a block; {rec['blocks_per_sm']} blocks an SM")
+    for shape in INSTANTIATIONS[name]:
+        if len(shape) == 2:
+            l, dh = shape
+            rec = {"L": l, "dh": dh, **mma_resources(kernel, l, dh, dev)}
+            print(f"{name} tensor cores (L, Dh)={shape}: {rec['registers']} registers, "
+                  f"{rec['local_bytes']} local (spill) bytes a thread; {rec['heads_per_block']} "
+                  f"heads, {rec['smem_bytes']} bytes of shared memory a block; "
+                  f"{rec['blocks_per_sm']} blocks an SM")
+        else:
+            l, h, dh = shape
+            plans = {b: board_mma_plan(kernel, b, l, h, dh, dev)._asdict()
+                     for b in ATTN_KERNELS[name][5]}
+            first = next(iter(plans.values()))
+            rec = {"L": l, "H": h, "dh": dh, "registers": first["registers"],
+                   "local_bytes": first["local_bytes"], "plans": plans}
+            print(f"{name} tensor cores (L, H, Dh)={shape}: {rec['registers']} registers, "
+                  f"{rec['local_bytes']} local (spill) bytes a thread")
+            for b, plan in plans.items():
+                print(f"  at B={b}: {plan['per_block']} {plan['unit']} a block, "
+                      f"{plan['blocks_per_board']} blocks a board, {plan['blocks']} blocks; "
+                      f"{plan['smem_bytes']} bytes of shared memory a block, "
+                      f"{plan['blocks_per_sm']} blocks an SM")
         out.append(rec)
     return out
 

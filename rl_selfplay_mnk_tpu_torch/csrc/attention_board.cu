@@ -17,10 +17,14 @@
 // and take per-head row slices.
 //
 // Bound: as in attention.cu, bytes at the shapes the models give (a forward
-// moves 4*B*L*D elements, a backward 7*B*L*D). The products are FMA on the
-// CUDA cores out of shared memory, which is what bounds these versions.
+// moves 4*B*L*D elements, a backward 7*B*L*D): 0.089 ms for a forward at the
+// 9x9 update's minibatch (B = 8192, L = 81, H = 4, Dh = 14, bf16). The bf16
+// forwards (attn_lane_slice_fwd_mma, attn_infold_fwd_mma, below) do both
+// products on the tensor cores; the other kernels, and both forwards in f32
+// (a tensor-core product of f32 data would round to TF32), do them with FMA
+// on the CUDA cores out of shared memory, which is what bounds them.
 //
-// Design. A board's rows are D*itemsize bytes, a multiple of 16 at every
+// Design of the FMA kernels. A board's rows are D*itemsize bytes, a multiple of 16 at every
 // registry width, so q, k, v (and dO) come in, and the results go out, as
 // 16-byte device accesses in the order of the layout, each element once. The
 // tensors sit in shared memory in their own type (bf16 as bf16). A warp works
@@ -54,6 +58,8 @@
 // wrapper (ops/attention.py) raises when it is not 0.
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -621,6 +627,454 @@ __global__ void __launch_bounds__(kBoardThreads, kBoardBlocksPerSM) attn_infold_
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: attn_lane_slice_fwd_mma (K5), attn_infold_fwd_mma (K6)
+// ---------------------------------------------------------------------------
+//
+// Both stage a board's rows as they lie in device memory, [token][channel],
+// into bf16 slabs of ld = padded_row_elems(width) elements a row (an odd
+// number of 16-byte words), by cp.async in the widest word that divides the
+// rows' bytes, their first column's and the tensors' addresses: 16 bytes at
+// every registry width, since a whole board row of four heads of 14 is
+// seven words even where one head's 28 bytes are not. Rows L .. 16 kKT - 1
+// are zeroed. A warp takes (head, 16 query rows) items; the scores of its
+// 16 rows against all 16 kKT keys stay in registers, the softmax and the
+// bf16 P fragments are K8's (softmax_fragments, probability_fragment), and
+// O goes over the warp's own rows and head columns of q's row-major slab,
+// which leaves as it came in. Past Dh = 16, S adds each 16-deep product
+// past the first in f32 (mma_chained), as K9's S does: the tensor cores'
+// accumulator truncates, and S sets where p rounds to bf16. Sums run in one
+// fixed order, no atomics: the same bits every run.
+//
+//   lane slice (K5)  The board stays row-major; a head is the column slice
+//     [h Dh, (h + 1) Dh) of every row. Q and K, as the A and B of S = Q K^T,
+//     are built from 32-bit shared loads of channel pairs (h Dh + 2t is even
+//     when Dh is; 16-bit loads for an odd Dh), channels past Dh read as
+//     zero; V, the B of P V, from 16-bit loads of two rows (a head of 14 or
+//     12 that starts inside a 16-byte word has no address for ldmatrix).
+//     Nothing is transposed. A block stages all of its board's k and v rows
+//     and the q rows of its query tiles.
+//   in-kernel fold (K6)  The staged rows of a block's heads are transposed on
+//     chip into [channel][token] slabs (K3's folded layout, ld = 16 kKT + 8):
+//     8 x 8 tiles leave the row-major slabs by ldmatrix.trans, and each lane
+//     stores its (channel, token pair) words, conflict-free on both sides.
+//     A head is the row slice [h Dh, (h + 1) Dh); the fragments are K3's (Q,
+//     K^T by ldmatrix.trans, V by ldmatrix), with the Q depth past Dh zeroed
+//     in registers. O comes out of the tensor cores as (query row, channel)
+//     fragments, the board's own layout, so the transpose back is the store
+//     into q's row-major slab.
+//
+// A block's unit of work (ops/attention.py, board_mma_plan): a board splits
+// over as many blocks as can all be resident on the card at once, K5 by its
+// query tiles and K6 by groups of heads, and takes a block where the boards
+// already fill it. K6 also takes no more heads a block than fit 75 KiB of
+// slabs (three blocks an SM).
+
+// Blocks an SM an instantiation asks for, from the registers a thread is
+// expected to hold (S 8 kKT f32, O 8 kDK, Q 4 kDK, and the addresses): 4
+// (128 registers a thread) or 3 (168). K5's V and K loads take more at the
+// widest sizes, which are on no registry board: 2 (255). With fewer, ptxas
+// (CUDA 12.9, sm_90a) spilled at (kKT, kDK) = (12, 1), (12, 2), (11, 4),
+// (8, 4), (6, 4), (4, 4) and (3, 4).
+template <int kKT, int kDK>
+constexpr int kBoardMinBlocks = 8 * kKT + 12 * kDK < 72 ? 4 : 3;
+template <int kKT, int kDK>
+constexpr int kLaneSliceMinBlocks = kKT == 12 || (kKT >= 8 && kDK == 4)
+                                        ? 2 : kBoardMinBlocks<kKT, kDK>;
+
+// Word sizes for the staging, as template arguments.
+template <int N>
+struct Bytes {
+    static constexpr int value = N;
+};
+
+template <typename F>
+__device__ __forceinline__ void in_words(int word_bytes, const F& f) {
+    switch (word_bytes) {
+        case 16: f(Bytes<16>{}); break;
+        case 8: f(Bytes<8>{}); break;
+        case 4: f(Bytes<4>{}); break;
+        default: f(Bytes<2>{}); break;
+    }
+}
+
+// Rows [r0, r1) of the columns [c0, c0 + width) of one board, device rows
+// [l][D] at `src`, -> the slab rows [l][ld] at `dst` by cp.async in words
+// of kBytes; rows [r1, r_end) of the slab zeroed. The copies stay in flight
+// until the caller's cp_async_wait_all.
+template <int kBytes>
+__device__ __forceinline__ void stage_rows(const bf16* src, bf16* dst, int ld, int D, int c0,
+                                           int width, int r0, int r1, int r_end) {
+    constexpr int kElems = kBytes / 2;
+    const int per_row = width / kElems;
+    const FastDiv by_row(per_row);
+    for (int idx = threadIdx.x; idx < (r1 - r0) * per_row; idx += blockDim.x) {
+        const int r = static_cast<int>(by_row(idx)), w = idx - r * per_row;
+        const bf16* from = src + static_cast<size_t>(r0 + r) * D + c0 + w * kElems;
+        bf16* to = dst + (r0 + r) * ld + w * kElems;
+        if constexpr (kBytes == 16) cp_async_16(shared_address(to), from);
+        else if constexpr (kBytes == 2) *to = *from;
+        else cp_async_small<kBytes>(shared_address(to), from);
+    }
+    const int words = ld / 8;  // ld is a multiple of eight
+    for (int idx = threadIdx.x; idx < (r_end - r1) * words; idx += blockDim.x)
+        reinterpret_cast<uint4*>(dst + r1 * ld)[idx] = make_uint4(0, 0, 0, 0);
+}
+
+// The way back: slab rows [r0, r1), columns [0, width) -> device rows [l][D]
+// from column c0 at `dst`.
+template <int kBytes>
+__device__ __forceinline__ void store_rows(bf16* dst, const bf16* src, int ld, int D, int c0,
+                                           int width, int r0, int r1) {
+    using Word = typename WordOf<kBytes>::type;
+    constexpr int kElems = kBytes / 2;
+    const int per_row = width / kElems;
+    const FastDiv by_row(per_row);
+    for (int idx = threadIdx.x; idx < (r1 - r0) * per_row; idx += blockDim.x) {
+        const int r = static_cast<int>(by_row(idx)), w = idx - r * per_row;
+        *reinterpret_cast<Word*>(dst + static_cast<size_t>(r0 + r) * D + c0 + w * kElems) =
+            *reinterpret_cast<const Word*>(src + (r0 + r) * ld + w * kElems);
+    }
+}
+
+__device__ __forceinline__ uint32_t bits_of(bf16 x) { return __bfloat16_as_ushort(x); }
+
+// Channels c and c + 1 of a head's row as one b16x2 register, the lower in
+// the low half; channels at or past dh read as zero. `words`: dh is even,
+// so the pair is one aligned 32-bit load.
+__device__ __forceinline__ uint32_t pair_at(const bf16* row, int c, int dh, bool words) {
+    if (words) return c < dh ? *reinterpret_cast<const uint32_t*>(row + c) : 0u;
+    if (c + 1 < dh) return bits_of(row[c]) | bits_of(row[c + 1]) << 16;
+    return c < dh ? bits_of(row[c]) : 0u;
+}
+
+// A b16x2 fragment register with its depth (channel) pair starting at c:
+// the halves at or past dh zeroed.
+__device__ __forceinline__ uint32_t within(uint32_t r, int c, int dh) {
+    return c + 1 < dh ? r : c < dh ? (r & 0xffffu) : 0u;
+}
+
+// O's fragments (oacc[u]: rows i0 + g and i0 + g + 8, channels 8u + 2t and
+// 8u + 2t + 1) -> a head's columns of a row-major slab at `head`, rows
+// below `rows` only.
+template <int kDK>
+__device__ __forceinline__ void put_output(bf16* head, int ld, const float (&oacc)[2 * kDK][4],
+                                           int i0, int rows, int dh, int lane) {
+    const int g = frag_row(lane), tc = frag_col(lane);
+    const bool words = (dh & 1) == 0;
+#pragma unroll
+    for (int u = 0; u < 2 * kDK; ++u) {
+        const int c = 8 * u + tc;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int i = i0 + g + 8 * r;
+            if (i < rows && c < dh) {
+                bf16* at = head + i * ld + c;
+                if (words) {
+                    *reinterpret_cast<uint32_t*>(at) = pack_bf16(oacc[u][2 * r], oacc[u][2 * r + 1]);
+                } else {
+                    at[0] = __float2bfloat16(oacc[u][2 * r]);
+                    if (c + 1 < dh) at[1] = __float2bfloat16(oacc[u][2 * r + 1]);
+                }
+            }
+        }
+    }
+}
+// Shared memory of a K5 block: the board's q, k and v rows, [16 kKT][ld].
+__host__ __device__ inline size_t lane_slice_mma_smem_bytes(int L, int H, int dh) {
+    return static_cast<size_t>(3) * 16 * key_tiles(L) * padded_row_elems(H * dh) * sizeof(bf16);
+}
+
+// kKT: 16-token tiles a board is padded to, kDK: 16-channel tiles a head is
+// padded to (key_tiles, channel_tiles). A block takes query tiles [t0, t0 +
+// tiles) of board blockIdx.x / parts, t0 = tiles * (blockIdx.x % parts).
+template <int kKT, int kDK>
+__global__ void __launch_bounds__(kMmaWarps * 32, kLaneSliceMinBlocks<kKT, kDK>) attn_lane_slice_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int L, int H, int dh, int tiles, int parts, int word_bytes, float scale)
+{
+    constexpr int kTokens = 16 * kKT;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int D = H * dh, ld = padded_row_elems(D);
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // becomes o
+    bf16* ks = qs + kTokens * ld;
+    bf16* vs = ks + kTokens * ld;
+    const int board_index = blockIdx.x / parts;
+    const int t0 = tiles * (blockIdx.x - board_index * parts);
+    const int nt = min(tiles, (L + 15) / 16 - t0);
+    const int r0 = 16 * t0, r1 = min(L, 16 * (t0 + nt));
+    const size_t board = static_cast<size_t>(board_index) * L * D;
+    in_words(word_bytes, [&](auto word) {
+        constexpr int kBytes = decltype(word)::value;
+        stage_rows<kBytes>(q + board, qs, ld, D, 0, D, r0, r1, 16 * (t0 + nt));
+        stage_rows<kBytes>(k + board, ks, ld, D, 0, D, 0, L, kTokens);
+        stage_rows<kBytes>(v + board, vs, ld, D, 0, D, 0, L, kTokens);
+    });
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = frag_row(lane), tc = frag_col(lane);
+    const bool words = (dh & 1) == 0;
+    for (int item = warp; item < H * nt; item += kMmaWarps) {
+        const int h = item / nt;
+        const int i0 = 16 * (t0 + item - h * nt);  // this warp's 16 query rows
+        const int col = h * dh;                    // and its head's columns
+
+        // A = Q (rows i, depth d): channel pairs of q's rows i0 + g, i0 + g + 8.
+        uint32_t qa[kDK][4];
+        const bf16* q_lo = qs + (i0 + g) * ld + col;
+        const bf16* q_hi = q_lo + 8 * ld;
+#pragma unroll
+        for (int kk = 0; kk < kDK; ++kk) {
+            const int c = 16 * kk + tc;
+            qa[kk][0] = pair_at(q_lo, c, dh, words);
+            qa[kk][1] = pair_at(q_hi, c, dh, words);
+            qa[kk][2] = pair_at(q_lo, c + 8, dh, words);
+            qa[kk][3] = pair_at(q_hi, c + 8, dh, words);
+        }
+
+        // S = Q . K^T: B = K^T (depth d, column j) from k's row j = 8 jn + g.
+        float s[2 * kKT][4];
+#pragma unroll
+        for (int jn = 0; jn < 2 * kKT; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jn][e] = 0.0f;
+            const bf16* k_row = ks + (8 * jn + g) * ld + col;
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                const int c = 16 * kk + tc;
+                mma_chained(s[jn], qa[kk], pair_at(k_row, c, dh, words),
+                            pair_at(k_row, c + 8, dh, words), kk);
+            }
+        }
+
+        float mx[2], rinv[2];
+        softmax_fragments(s, L - tc, scale, mx, rinv);
+
+        // O = round(P) . V: B = V (depth j, column d) from v's rows 16 jt +
+        // 2t, + 1 (+ 8) at channel 8u + g.
+        float oacc[2 * kDK][4];
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oacc[u][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+            uint32_t pa[4];
+            probability_fragment(pa, s, jt, rinv);
+            const bf16* v_rows = vs + (16 * jt + tc) * ld + col;
+#pragma unroll
+            for (int u = 0; u < 2 * kDK; ++u) {
+                const int c = 8 * u + g;
+                uint32_t b0 = 0, b1 = 0;
+                if (c < dh) {
+                    const bf16* at = v_rows + c;
+                    b0 = bits_of(at[0]) | bits_of(at[ld]) << 16;
+                    b1 = bits_of(at[8 * ld]) | bits_of(at[9 * ld]) << 16;
+                }
+                mma_bf16_16816(oacc[u], pa, b0, b1);
+            }
+        }
+        // These rows and columns of q are read by this warp alone, and its
+        // A fragments are in registers.
+        put_output<kDK>(qs + col, ld, oacc, i0, r1, dh, lane);
+    }
+    __syncthreads();
+    in_words(word_bytes, [&](auto word) {
+        store_rows<decltype(word)::value>(o + board, qs, ld, D, 0, D, r0, r1);
+    });
+}
+
+// Shared memory of a K6 block of `heads` heads: their columns of q, k and v
+// row-major, [16 kKT][padded_row_elems(heads Dh)], then transposed,
+// [heads Dh][16 kKT + 8].
+__host__ __device__ inline size_t infold_mma_smem_bytes(int L, int dh, int heads) {
+    const size_t tokens = 16 * key_tiles(L), width = static_cast<size_t>(heads) * dh;
+    return 3 * (tokens * padded_row_elems(heads * dh) + width * (tokens + 8)) * sizeof(bf16);
+}
+
+// Rows [0, kTokens) x columns [0, width) of a row-major slab (row stride
+// ld) -> `cols`, [channel][token] with row stride kTokens + 8. A warp moves
+// 2 x 2 tiles of 8 x 8 at a time: ldmatrix.trans gives lane (g, t) tokens
+// 2t, 2t + 1 of channel g of each tile, which it stores as one word.
+// Channels past width are not stored.
+template <int kTokens>
+__device__ __forceinline__ void transpose_slab(const bf16* rows, int ld, bf16* cols, int width) {
+    constexpr int kLdl = kTokens + 8;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = frag_row(lane), tc = frag_col(lane);
+    const int tile = lane >> 3, r8 = lane & 7;
+    const int channel_tiles8 = (width + 7) / 8, channel_pairs = (channel_tiles8 + 1) / 2;
+    for (int item = warp; item < kTokens / 16 * channel_pairs; item += kMmaWarps) {
+        const int tp = item / channel_pairs, cp = item - tp * channel_pairs;
+        const int ct = min(2 * cp + (tile >> 1), channel_tiles8 - 1);
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, shared_address(rows + (16 * tp + 8 * (tile & 1) + r8) * ld + 8 * ct));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int c = 8 * (2 * cp + (i >> 1)) + g;
+            if (c < width)
+                *reinterpret_cast<uint32_t*>(cols + c * kLdl + 16 * tp + 8 * (i & 1) + tc) = r[i];
+        }
+    }
+}
+
+// kKT, kDK as for K5. A block takes heads [h0, h0 + heads) of board
+// blockIdx.x / parts, h0 = heads * (blockIdx.x % parts).
+template <int kKT, int kDK>
+__global__ void __launch_bounds__(kMmaWarps * 32, kBoardMinBlocks<kKT, kDK>) attn_infold_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int L, int H, int dh, int heads, int parts, int word_bytes, float scale)
+{
+    constexpr int kTokens = 16 * kKT, kLdl = kTokens + 8;  // padded_row_elems(kTokens)
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int D = H * dh, ld = padded_row_elems(heads * dh);
+    const int rslab = kTokens * ld, tslab = heads * dh * kLdl;
+    bf16* rows = reinterpret_cast<bf16*>(smem_raw);  // q (becomes o), k, v row-major
+    bf16* cols = rows + 3 * rslab;                     // q, k, v transposed
+    const int board_index = blockIdx.x / parts;
+    const int h0 = heads * (blockIdx.x - board_index * parts);
+    const int nh = min(heads, H - h0), width = nh * dh;
+    const size_t board = static_cast<size_t>(board_index) * L * D;
+    in_words(word_bytes, [&](auto word) {
+        constexpr int kBytes = decltype(word)::value;
+        stage_rows<kBytes>(q + board, rows, ld, D, h0 * dh, width, 0, L, kTokens);
+        stage_rows<kBytes>(k + board, rows + rslab, ld, D, h0 * dh, width, 0, L, kTokens);
+        stage_rows<kBytes>(v + board, rows + 2 * rslab, ld, D, h0 * dh, width, 0, L, kTokens);
+    });
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t = 0; t < 3; ++t) transpose_slab<kTokens>(rows + t * rslab, ld, cols + t * tslab, width);
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tc = frag_col(lane);
+    // This lane's row of an ldmatrix.x4: 8 rows of one tile, two tiles down
+    // (rows + 8) and two across (16 bytes further). Channel rows past the
+    // block's last head are read from its last row: they meet zeroed Q depth
+    // or give output channels that are not stored.
+    const int r8 = lane & 7, down = (lane >> 3) & 1, across = lane >> 4;
+    const uint32_t qs_at = shared_address(cols);
+    const uint32_t ks_at = qs_at + tslab * 2, vs_at = qs_at + 2 * tslab * 2;
+    const int q_tiles = (L + 15) / 16;
+    for (int item = warp; item < nh * q_tiles; item += kMmaWarps) {
+        const int hl = item / q_tiles;
+        const int i0 = 16 * (item - hl * q_tiles);  // this warp's 16 query rows
+        const int row0 = hl * dh;                   // and its head's channel rows
+        auto channel_row = [&](int d) { return min(row0 + d, width - 1); };
+
+        // A = Q (rows i, depth d) from q's [d][i] rows: ldmatrix.trans; the
+        // depth past Dh zeroed.
+        uint32_t qa[kDK][4];
+#pragma unroll
+        for (int kk = 0; kk < kDK; ++kk) {
+            ldmatrix_x4_trans(qa[kk], qs_at + (channel_row(kk * 16 + across * 8 + r8) * kLdl
+                                               + i0 + down * 8) * 2);
+            const int c = 16 * kk + tc;
+            qa[kk][0] = within(qa[kk][0], c, dh);
+            qa[kk][1] = within(qa[kk][1], c, dh);
+            qa[kk][2] = within(qa[kk][2], c + 8, dh);
+            qa[kk][3] = within(qa[kk][3], c + 8, dh);
+        }
+
+        // S = Q . K^T: B = K^T (depth d, columns j) from k's [d][j] rows: ldmatrix.trans.
+        float s[2 * kKT][4];
+#pragma unroll
+        for (int j = 0; j < 2 * kKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4_trans(b, ks_at + (channel_row(kk * 16 + down * 8 + r8) * kLdl
+                                              + jt * 16 + across * 8) * 2);
+                mma_chained(s[2 * jt], qa[kk], b[0], b[1], kk);
+                mma_chained(s[2 * jt + 1], qa[kk], b[2], b[3], kk);
+            }
+        }
+
+        float mx[2], rinv[2];
+        softmax_fragments(s, L - tc, scale, mx, rinv);
+
+        // O = round(P) . V: B = V (depth j, columns d) from v's [d][j] rows:
+        // plain ldmatrix.
+        float oacc[2 * kDK][4];
+#pragma unroll
+        for (int u = 0; u < 2 * kDK; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oacc[u][e] = 0.0f;
+#pragma unroll
+        for (int jt = 0; jt < kKT; ++jt) {
+            uint32_t pa[4];
+            probability_fragment(pa, s, jt, rinv);
+#pragma unroll
+            for (int kk = 0; kk < kDK; ++kk) {
+                uint32_t b[4];
+                ldmatrix_x4(b, vs_at + (channel_row(kk * 16 + across * 8 + r8) * kLdl
+                                        + jt * 16 + down * 8) * 2);
+                mma_bf16_16816(oacc[2 * kk], pa, b[0], b[1]);
+                mma_bf16_16816(oacc[2 * kk + 1], pa, b[2], b[3]);
+            }
+        }
+        // q's row-major slab is no longer read: O goes there in the board's layout.
+        put_output<kDK>(rows + row0, ld, oacc, i0, L, dh, lane);
+    }
+    __syncthreads();
+    in_words(word_bytes, [&](auto word) {
+        store_rows<decltype(word)::value>(o + board, rows, ld, D, h0 * dh, width, 0, L);
+    });
+}
+
+// The widest word, 16 bytes at most, that divides 2 D, 2 cols (the columns
+// of a block, and so their first column) and the tensors' addresses.
+int board_word_bytes(const void* q, const void* k, const void* v, const void* o, int D, int cols) {
+    const void* const tensors[] = {q, k, v, o};
+    return packed_word_bytes(tensors, D | cols);
+}
+
+template <int kKT, int kDK>
+cudaError_t lane_slice_mma_setup() {
+    static bool done = false;
+    return mma_setup(attn_lane_slice_fwd_mma<kKT, kDK>, done);
+}
+
+template <int kKT, int kDK>
+cudaError_t infold_mma_setup() {
+    static bool done = false;
+    return mma_setup(attn_infold_fwd_mma<kKT, kDK>, done);
+}
+
+template <int kKT, int kDK>
+int lane_slice_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                       int dh, int tiles, cudaStream_t stream) {
+    const cudaError_t err = lane_slice_mma_setup<kKT, kDK>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int parts = ((L + 15) / 16 + tiles - 1) / tiles;
+    attn_lane_slice_fwd_mma<kKT, kDK><<<B * parts, kMmaWarps * 32,
+                                        lane_slice_mma_smem_bytes(L, H, dh), stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), L, H, dh, tiles, parts, board_word_bytes(q, k, v, o, H * dh, H * dh),
+        1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKT, int kDK>
+int infold_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                   int dh, int heads, cudaStream_t stream) {
+    const cudaError_t err = infold_mma_setup<kKT, kDK>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int parts = (H + heads - 1) / heads;
+    attn_infold_fwd_mma<kKT, kDK><<<B * parts, kMmaWarps * 32, infold_mma_smem_bytes(L, dh, heads),
+                                    stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), L, H, dh, heads, parts,
+        board_word_bytes(q, k, v, o, H * dh, heads * dh), 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
 bool shape_ok(int B, int L, int H, int dh, int heads_per_pass, int threads) {
     return B > 0 && L >= 1 && L <= kMaxL && H >= 1 && dh >= 1 && dh <= kMaxDh
            && heads_per_pass >= 1 && heads_per_pass <= H
@@ -716,4 +1170,65 @@ extern "C" int attn_infold_bwd_launch(int is_bf16, const void* q, const void* k,
     return is_bf16
         ? infold_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, B, L, H, dh, heads_per_pass, threads, s)
         : infold_bwd<float>(q, k, v, g, dq, dk, dv, B, L, H, dh, heads_per_pass, threads, s);
+}
+
+// The bf16 forwards on the tensor cores (is_bf16 = 1), four warps a block.
+// K5: `tiles` query tiles of one board a block; K6: `heads` heads of one
+// board a block. Their shared memory, and what an instantiation takes on the
+// card (registers, local bytes, blocks an SM at that shared memory).
+extern "C" size_t attn_lane_slice_fwd_mma_smem_bytes(int L, int H, int dh) {
+    return lane_slice_mma_smem_bytes(L, H, dh);
+}
+
+extern "C" size_t attn_infold_fwd_mma_smem_bytes(int L, int dh, int heads) {
+    return infold_mma_smem_bytes(L, dh, heads);
+}
+
+extern "C" int attn_lane_slice_fwd_mma_launch(int is_bf16, const void* q, const void* k,
+                                              const void* v, void* o, int B, int L, int H, int dh,
+                                              int tiles, void* stream) {
+    if (B == 0) return 0;
+    if (!is_bf16 || !shape_ok(B, L, H, dh, H, kMmaWarps * 32) || tiles < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        return lane_slice_fwd_mma<decltype(kt)::value, decltype(dk)::value>(
+            q, k, v, o, B, L, H, dh, tiles, static_cast<cudaStream_t>(stream));
+    });
+}
+
+extern "C" int attn_infold_fwd_mma_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                          void* o, int B, int L, int H, int dh, int heads,
+                                          void* stream) {
+    if (B == 0) return 0;
+    if (!is_bf16 || !shape_ok(B, L, H, dh, heads, kMmaWarps * 32))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        return infold_fwd_mma<decltype(kt)::value, decltype(dk)::value>(
+            q, k, v, o, B, L, H, dh, heads, static_cast<cudaStream_t>(stream));
+    });
+}
+
+extern "C" int attn_lane_slice_fwd_mma_resources(int L, int H, int dh, int* registers,
+                                                 int* local_bytes, int* blocks_per_sm) {
+    if (!shape_ok(1, L, H, dh, H, kMmaWarps * 32)) return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        constexpr int kKT = decltype(kt)::value, kDK = decltype(dk)::value;
+        const cudaError_t err = lane_slice_mma_setup<kKT, kDK>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return mma_resources(attn_lane_slice_fwd_mma<kKT, kDK>, lane_slice_mma_smem_bytes(L, H, dh),
+                             registers, local_bytes, blocks_per_sm);
+    });
+}
+
+extern "C" int attn_infold_fwd_mma_resources(int L, int dh, int heads, int* registers,
+                                             int* local_bytes, int* blocks_per_sm) {
+    if (!shape_ok(1, L, heads, dh, heads, kMmaWarps * 32))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk) {
+        constexpr int kKT = decltype(kt)::value, kDK = decltype(dk)::value;
+        const cudaError_t err = infold_mma_setup<kKT, kDK>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return mma_resources(attn_infold_fwd_mma<kKT, kDK>, infold_mma_smem_bytes(L, dh, heads),
+                             registers, local_bytes, blocks_per_sm);
+    });
 }

@@ -84,25 +84,6 @@ template <int kKT, int kDK>
 constexpr int kBwdMinBlocks = 16 * kKT + 8 * kDK + 16 <= 88 ? 4
                               : 16 * kKT + 8 * kDK + 16 <= 160 ? 3 : 2;
 
-// d += a . b for S and dP, whose f32 values set where p and ds round to
-// bf16. The tensor cores add a product into their accumulator rounding toward
-// zero, so chained over the channel tiles they pull every score and dp a
-// little toward zero, and p and ds round on another side of a bf16 step than
-// the plain version's f32 sums several times as often as an FMA sum does.
-// So each 16-deep product past the first (kk > 0) is summed apart and added
-// in f32, rounding to nearest.
-__device__ __forceinline__ void mma_chained(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1, int kk) {
-    if (kk == 0) {
-        mma_bf16_16816(d, a, b0, b1);
-        return;
-    }
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_bf16_16816(t, a, b0, b1);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
 // Shared memory of one block: `heads` heads' four slabs (q, k, v, dO in
 // that order), then each head's three row statistics (max, 1 / sum, row) of
 // its 16 key_tiles(L) query rows.

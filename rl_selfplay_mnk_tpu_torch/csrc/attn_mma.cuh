@@ -1,7 +1,9 @@
 // What the bf16 tensor-core attention kernels share (attention.cu: K3's
 // attn_folded_fwd_mma and K8's attn_packed_fwd_mma; attention_bwd.cu: K9's
-// attn_packed_bwd_mma): the padded sizes they are compiled for, the softmax
-// of a warp's score fragments and the probability fragment built from it,
+// attn_packed_bwd_mma; attention_board.cu: K5's attn_lane_slice_fwd_mma and
+// K6's attn_infold_fwd_mma): the padded sizes they are compiled for, the
+// products of S and dP summed in f32 past the first (mma_chained), the
+// softmax of a warp's score fragments and the probability fragment built from it,
 // the cp.async staging of packed heads into [token][channel] slabs and the
 // way back out, and the per-instantiation set-up and resource query.
 
@@ -56,6 +58,25 @@ int for_tiles(int L, int dh, const F& f) {
         case 11: return for_channel_tiles<11>(dh, f);
         default: return for_channel_tiles<12>(dh, f);
     }
+}
+
+// d += a . b for S and dP, whose f32 values set where p and ds round to
+// bf16. The tensor cores add a product into their accumulator rounding toward
+// zero, so chained over the channel tiles they pull every score and dp a
+// little toward zero, and p and ds round on another side of a bf16 step than
+// the plain version's f32 sums several times as often as an FMA sum does.
+// So each 16-deep product past the first (kk > 0) is summed apart and added
+// in f32, rounding to nearest.
+__device__ __forceinline__ void mma_chained(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1, int kk) {
+    if (kk == 0) {
+        mma_bf16_16816(d, a, b0, b1);
+        return;
+    }
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16_16816(t, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // Softmax of a warp's 16 query rows, whose scores s are the C fragments of

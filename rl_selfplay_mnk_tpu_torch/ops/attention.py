@@ -8,10 +8,11 @@ Replaces the TPU kernels of ``rl_selfplay_mnk_tpu/ops/pallas_attention.py``:
   * ``attention_packed`` on (B, L, D = H * Dh): ``_packed_fwd_kernel``
     forward (K8) and ``_packed_bwd_kernel`` backward (K9);
   * ``attention_lane_slice_fwd`` on (B, L, D): ``_lane_slice_fwd_kernel``
-    (K5), forward only, a block per board, heads as column slices on chip;
+    (K5), forward only, a board's rows in a block, heads as column slices on
+    chip;
   * ``attention_infold`` on (B, L, D): ``_infold_fwd_kernel`` forward (K6) and
-    ``_infold_bwd_kernel`` backward (K7), a block per board, the board
-    transposed on chip and heads as row slices;
+    ``_infold_bwd_kernel`` backward (K7), a board (or a group of its heads) a
+    block, transposed on chip, heads as row slices;
   * ``tiny_head_attention`` on (B, L, H, Dh), the models' entry, which picks
     among them (see there).
 
@@ -27,15 +28,16 @@ recomputes the probabilities in its backward; the incoming gradient is cast
 to q's dtype first.
 
 On the H100 both directions are bound by bytes at the models' shapes. The
-bf16 folded and packed forwards (K3, ``folded_fwd_kernel_for``; K8,
-``packed_fwd_kernel_for``) do their two products on the tensor cores
-(``mma.sync``), a warp per 16 query rows with the scores and probabilities
-in registers; so does the bf16 packed backward (K9,
-``packed_bwd_kernel_for``; ``csrc/attention_bwd.cu``), a warp per 16 query
-rows and then per 16 key rows. The other kernels, and K3, K8 and K9 in f32,
-hold a head or a board in shared memory (``csrc/attention.cu``,
-``csrc/attention_board.cu``) and do their products with FMA on the CUDA
-cores, which bound them for now.
+bf16 forwards (K3, ``folded_fwd_kernel_for``; K8, ``packed_fwd_kernel_for``;
+K5, ``lane_slice_fwd_kernel_for``; K6, ``infold_fwd_kernel_for``) do their
+two products on the tensor cores (``mma.sync``), a warp per 16 query rows
+with the scores and probabilities in registers; so does the bf16 packed
+backward (K9, ``packed_bwd_kernel_for``; ``csrc/attention_bwd.cu``), a warp
+per 16 query rows and then per 16 key rows. The other kernels, and K3, K5,
+K6, K8 and K9 in f32, hold a head or a board in shared memory
+(``csrc/attention.cu``, ``csrc/attention_board.cu``) and do their products
+with FMA on the CUDA cores, which bound them for now. ``kernel="fma"`` runs
+that first version on bf16 too.
 
 The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
 ``attention_packed_fwd``, ``attention_packed_bwd``,
@@ -50,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -241,6 +244,36 @@ def packed_bwd_kernel_for(dtype: torch.dtype) -> str:
     return _kernel_for("attention_packed_bwd", dtype)
 
 
+def lane_slice_fwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K5 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, as K8."""
+    return _kernel_for("attention_lane_slice_fwd", dtype)
+
+
+def infold_fwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K6 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, as K8."""
+    return _kernel_for("attention_infold_fwd", dtype)
+
+
+KERNELS = ("mma", "fma")  # what a wrapper's ``kernel`` may name
+
+
+def _known_kernel(name: str, kernel) -> None:
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"{name}: unknown kernel {kernel!r}, expected one of {KERNELS}")
+
+
+def _kernel_on_card(name: str, dtype: torch.dtype, kernel) -> str:
+    """The kernel a wrapper launches for a CUDA tensor of ``dtype``: the one
+    the dtype takes, or ``"fma"`` (the first version) where the caller asks
+    for it; the tensor cores never take f32."""
+    default = _kernel_for(name, dtype)
+    if kernel not in (None, default, "fma"):
+        raise ValueError(f"{name}: no {kernel!r} kernel for {dtype}")
+    return kernel or default
+
+
 _MMA_MAX_HEADS = 4  # csrc/attn_mma.cuh kMmaMaxHeads
 # A block of a tensor-core kernel takes heads while they fit this much shared
 # memory: three or more blocks an SM for the forwards; three for K9 where a
@@ -327,8 +360,15 @@ def _board_lib():
     lib.attn_lane_slice_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
     lib.attn_infold_fwd_launch.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
     lib.attn_infold_bwd_launch.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
+    for kernel in ("lane_slice_fwd", "infold_fwd"):
+        getattr(lib, f"attn_{kernel}_mma_launch").argtypes = [i] + [p] * 4 + [i] * 5 + [p]
+        getattr(lib, f"attn_{kernel}_mma_smem_bytes").argtypes = [i] * 3
+        getattr(lib, f"attn_{kernel}_mma_smem_bytes").restype = ctypes.c_size_t
+        getattr(lib, f"attn_{kernel}_mma_resources").argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
     for fn in (lib.attn_lane_slice_fwd_launch, lib.attn_infold_fwd_launch,
-               lib.attn_infold_bwd_launch):
+               lib.attn_infold_bwd_launch, lib.attn_lane_slice_fwd_mma_launch,
+               lib.attn_infold_fwd_mma_launch, lib.attn_lane_slice_fwd_mma_resources,
+               lib.attn_infold_fwd_mma_resources):
         fn.restype = i
     return lib
 
@@ -341,12 +381,8 @@ def _board_plan(kind: str, l: int, h: int, dh: int, itemsize: int, device: torch
     """(threads per block, heads per pass) of a one-block-per-board kernel:
     the most threads, then the most heads at a time, that fit the card's
     shared memory per block. The lane-slice kernel holds all heads at once."""
+    _board_limits(kind, l, dh)
     lib = _board_lib()
-    if l > lib.board_attn_max_tokens() or dh > lib.board_attn_max_head_dim():
-        raise KernelError(
-            f"attention {kind}: L={l}, Dh={dh} is beyond the kernel's "
-            f"L <= {lib.board_attn_max_tokens()}, Dh <= {lib.board_attn_max_head_dim()}"
-        )
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     code = _BOARD_KINDS[kind]
     threads = lib.board_attn_max_threads()
@@ -360,6 +396,88 @@ def _board_plan(kind: str, l: int, h: int, dh: int, itemsize: int, device: torch
         f"attention {kind}: L={l}, H={h}, Dh={dh} needs {need} bytes of shared memory "
         f"per block, the card allows {limit}"
     )
+
+
+# K6 on the tensor cores takes no more heads a block than fit this much
+# shared memory, so that three blocks share an SM.
+_INFOLD_MMA_SMEM = 75 * 1024
+
+
+def _board_limits(name: str, l: int, dh: int) -> None:
+    lib = _board_lib()
+    if l > lib.board_attn_max_tokens() or dh > lib.board_attn_max_head_dim():
+        raise KernelError(
+            f"attention {name}: L={l}, Dh={dh} is beyond the kernel's "
+            f"L <= {lib.board_attn_max_tokens()}, Dh <= {lib.board_attn_max_head_dim()}"
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _board_mma_resources(kernel: str, l: int, h: int, dh: int, per_block: int,
+                         device: torch.device) -> tuple:
+    """(registers, local (spill) bytes) a thread of the tensor-core K5 or K6
+    instantiation for (L, Dh) takes, a block's shared bytes with
+    ``per_block`` units, and the blocks that fit an SM with them."""
+    lib = _board_lib()
+    shape = (l, h, dh) if kernel == "lane_slice_fwd" else (l, dh, per_block)
+    entry = getattr(lib, f"attn_{kernel}_mma_resources")
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        check_launch(entry.__name__, entry(
+            *shape, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)))
+    return (regs.value, local.value, getattr(lib, f"attn_{kernel}_mma_smem_bytes")(*shape),
+            blocks.value)
+
+
+class BoardPlan(NamedTuple):
+    """A block's unit of work for the tensor-core K5 or K6 at one batch, and
+    what the instantiation takes on the card."""
+
+    unit: str               # "query tiles" (K5) or "heads" (K6)
+    per_block: int          # units a block
+    blocks_per_board: int
+    blocks: int
+    registers: int          # a thread's
+    local_bytes: int        # a thread's spills
+    smem_bytes: int         # a block's
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def board_mma_plan(kernel: str, b: int, l: int, h: int, dh: int,
+                   device: torch.device) -> BoardPlan:
+    """A block's unit of work for the tensor-core K5 (``kernel``
+    "lane_slice_fwd": 16-row query tiles of one board; a block stages all of
+    the board's k and v rows and its own q rows, whole rows either way) or K6
+    ("infold_fwd": heads of one board, whose columns the block transposes),
+    at B boards of (L, H, Dh).
+
+    The rule: the fewest units a block, so the most blocks a board, with
+    which all B x (blocks a board) blocks are resident on the card at once
+    (the SMs times the blocks an SM holds); where even a board a block is
+    more than that, the most units a block. K6 takes no more heads a block
+    than fit ``_INFOLD_MMA_SMEM`` (one at least)."""
+    _board_limits(kernel, l, dh)
+    lib = _board_lib()
+    props = torch.cuda.get_device_properties(device)
+    if kernel == "lane_slice_fwd":
+        unit, units = "query tiles", -(-l // 16)
+        counts = list(range(1, units + 1))
+    else:
+        unit, units = "heads", h
+        counts = [n for n in range(1, h + 1)
+                  if lib.attn_infold_fwd_mma_smem_bytes(l, dh, n) <= _INFOLD_MMA_SMEM] or [1]
+    smem = _board_mma_resources(kernel, l, h, dh, counts[0], device)[2]
+    if smem > props.shared_memory_per_block_optin:
+        raise KernelError(f"attention {kernel}: L={l}, H={h}, Dh={dh} needs {smem} bytes of "
+                          f"shared memory per block, the card allows "
+                          f"{props.shared_memory_per_block_optin}")
+    for per_block in counts:
+        resources = _board_mma_resources(kernel, l, h, dh, per_block, device)
+        if b * -(-units // per_block) <= props.multi_processor_count * resources[3]:
+            break
+    parts = -(-units // per_block)
+    return BoardPlan(unit, per_block, parts, b * parts, *resources)
 
 
 def _on_card(name: str, q: torch.Tensor) -> bool:
@@ -436,14 +554,12 @@ def attention_folded_fwd(q, k, v, kernel: str | None = None):
     On the card it launches ``folded_fwd_kernel_for(q.dtype)``, unless
     ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
     which chip_smoke.py times beside the tensor-core kernel)."""
+    _known_kernel("attention_folded_fwd", kernel)
     if not _on_card("attention_folded_fwd", q):
         return attention_folded_reference(q, k, v)
     bh, dh, l = _folded_dims("attention_folded_fwd", q)
     tensors = {"q": q, "k": k, "v": v}
-    default = folded_fwd_kernel_for(q.dtype)
-    if kernel not in (None, default, "fma"):
-        raise ValueError(f"attention_folded_fwd: no {kernel!r} kernel for {q.dtype}")
-    if (kernel or default) == "fma":
+    if _kernel_on_card("attention_folded_fwd", q.dtype, kernel) == "fma":
         return _launch(attention_folded_fwd, "attn_folded_fwd_launch", False, tensors, l, dh,
                        (bh, dh, l))[0]
     _checked("attention_folded_fwd", tensors)
@@ -466,14 +582,12 @@ def attention_packed_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
     On the card it launches ``packed_fwd_kernel_for(q.dtype)``, unless
     ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
     which chip_smoke.py times beside the tensor-core kernel)."""
+    _known_kernel("attention_packed_fwd", kernel)
     if not _on_card("attention_packed_fwd", q):
         return attention_packed_reference(q, k, v, h, dh)
     dims = _packed_dims("attention_packed_fwd", q, h, dh)
     tensors = {"q": q, "k": k, "v": v}
-    default = packed_fwd_kernel_for(q.dtype)
-    if kernel not in (None, default, "fma"):
-        raise ValueError(f"attention_packed_fwd: no {kernel!r} kernel for {q.dtype}")
-    if (kernel or default) == "fma":
+    if _kernel_on_card("attention_packed_fwd", q.dtype, kernel) == "fma":
         return _launch(attention_packed_fwd, "attn_packed_fwd_launch", False, tensors, dims[1], dh,
                        dims)[0]
     _checked("attention_packed_fwd", tensors)
@@ -487,14 +601,12 @@ def attention_packed_bwd(q, k, v, do, h: int, dh: int, kernel: str | None = None
     On the card it launches ``packed_bwd_kernel_for(q.dtype)``, unless
     ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
     which chip_smoke.py times beside the tensor-core kernel)."""
+    _known_kernel("attention_packed_bwd", kernel)
     if not _on_card("attention_packed_bwd", q):
         return attention_packed_bwd_reference(q, k, v, do, h, dh)
     dims = _packed_dims("attention_packed_bwd", q, h, dh)
     tensors = {"q": q, "k": k, "v": v, "do": do}
-    default = packed_bwd_kernel_for(q.dtype)
-    if kernel not in (None, default, "fma"):
-        raise ValueError(f"attention_packed_bwd: no {kernel!r} kernel for {q.dtype}")
-    if (kernel or default) == "fma":
+    if _kernel_on_card("attention_packed_bwd", q.dtype, kernel) == "fma":
         return tuple(_launch(attention_packed_bwd, "attn_packed_bwd_launch", True, tensors, dims[1],
                              dh, dims))
     _checked("attention_packed_bwd", tensors)
@@ -502,22 +614,43 @@ def attention_packed_bwd(q, k, v, do, h: int, dh: int, kernel: str | None = None
                       (*dims, _mma_heads("packed_bwd", dims[1], dh, q.device))))
 
 
-def attention_lane_slice_fwd(q, k, v, h: int, dh: int):
-    """K5: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh). Forward only."""
+def _board_fwd(wrapper, kernel_name: str, fma_kind: str, q, k, v, h: int, dh: int, kernel):
+    """K5 or K6 on the card: the tensor-core kernel (bf16) at the block plan
+    of ``board_mma_plan``, or the FMA kernel a block per board."""
+    dims = _packed_dims(wrapper.__name__, q, h, dh)
+    tensors = {"q": q, "k": k, "v": v}
+    if _kernel_on_card(wrapper.__name__, q.dtype, kernel) == "fma":
+        return _launch_board(wrapper, f"attn_{kernel_name}_launch", fma_kind, tensors, dims)[0]
+    _checked(wrapper.__name__, tensors)
+    per_block = board_mma_plan(kernel_name, *dims, q.device).per_block
+    return _run(wrapper, getattr(_board_lib(), f"attn_{kernel_name}_mma_launch"), tensors, 1,
+                (*dims, per_block))[0]
+
+
+def attention_lane_slice_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
+    """K5: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh). Forward only.
+
+    On the card it launches ``lane_slice_fwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
+    which chip_smoke.py times beside the tensor-core kernel)."""
+    _known_kernel("attention_lane_slice_fwd", kernel)
     if not _on_card("attention_lane_slice_fwd", q):
         return attention_lane_slice_reference(q, k, v, h, dh)
-    dims = _packed_dims("attention_lane_slice_fwd", q, h, dh)
-    return _launch_board(attention_lane_slice_fwd, "attn_lane_slice_fwd_launch",
-                         "lane slice forward", {"q": q, "k": k, "v": v}, dims)[0]
+    return _board_fwd(attention_lane_slice_fwd, "lane_slice_fwd", "lane slice forward",
+                      q, k, v, h, dh, kernel)
 
 
-def attention_infold_fwd(q, k, v, h: int, dh: int):
-    """K6: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh)."""
+def attention_infold_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
+    """K6: q, k, v (B, L, H*Dh), bf16 or f32 -> o (B, L, H*Dh).
+
+    On the card it launches ``infold_fwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first
+    version)."""
+    _known_kernel("attention_infold_fwd", kernel)
     if not _on_card("attention_infold_fwd", q):
         return attention_infold_reference(q, k, v, h, dh)
-    dims = _packed_dims("attention_infold_fwd", q, h, dh)
-    return _launch_board(attention_infold_fwd, "attn_infold_fwd_launch",
-                         "in-kernel-fold forward", {"q": q, "k": k, "v": v}, dims)[0]
+    return _board_fwd(attention_infold_fwd, "infold_fwd", "in-kernel-fold forward",
+                      q, k, v, h, dh, kernel)
 
 
 def attention_infold_bwd(q, k, v, do, h: int, dh: int):

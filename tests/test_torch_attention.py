@@ -3,9 +3,13 @@ package's Pallas kernels in interpret mode and its XLA reference, on the
 same numpy arrays: the folded and the packed pair, forward and backward,
 ``tiny_head_attention`` with its autograd gradient through both branches of
 the dispatch, then the one-block-per-board kernels' plain versions (lane
-slice, in-kernel fold), ``attention_infold`` against ``jax.grad`` and the
-dispatch's choice of route. Float32 on the CPU, and bf16 to pin where p
-and ds are rounded, in the folded pair and in the packed pair."""
+slice, in-kernel fold), the kernel each forward takes by dtype and the
+block-unit rule of the tensor-core board forwards, ``attention_infold``
+against ``jax.grad`` and the dispatch's choice of route. Float32 on the
+CPU, and bf16 to pin where p and ds are rounded, in the folded pair and in
+the packed pair."""
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 
 from rl_selfplay_mnk_tpu.ops import pallas_attention as jattn
 from rl_selfplay_mnk_tpu_torch.ops import attention as tattn
+from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
 
 # One intra-op thread: the tensors here are tiny, and several test processes
 # with a thread pool each spend their time waiting on one another.
@@ -288,6 +293,90 @@ def test_infold_pair_matches_pallas_interpret(b, l, h, dh):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
     for g, w in zip(tattn.attention_infold_bwd(*to_torch(xs), h, dh), got):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("name", ["lane_slice_fwd", "infold_fwd"])
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_board_forward_kernel_follows_the_dtype(name, dtype, kernel):
+    """K5 and K6 take the tensor-core kernel for bf16 and the FMA kernel (their
+    first version) for f32, whose products on the tensor cores would round to
+    TF32."""
+    kernel_for = getattr(tattn, f"{name}_kernel_for")
+    assert kernel_for(dtype) == kernel
+    with pytest.raises(ValueError, match=f"attention_{name}: unsupported dtype"):
+        kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "fma"])
+@pytest.mark.parametrize("name", ["lane_slice", "infold"])
+def test_board_forward_on_cpu_tensors_is_the_plain_version_for_any_kernel(name, kernel):
+    xs = to_torch(arrays(22, (2, 9, 4 * 14), 3), torch.bfloat16)
+    wrapper = getattr(tattn, f"attention_{name}_fwd")
+    before = wrapper.launches
+    got = wrapper(*xs, 4, 14, kernel=kernel)
+    assert wrapper.launches == before
+    assert torch.equal(got, getattr(tattn, f"attention_{name}_reference")(*xs, 4, 14))
+
+
+@pytest.mark.parametrize("name", ["lane_slice", "infold"])
+def test_board_forward_rejects_an_unknown_kernel(name):
+    xs = to_torch(arrays(23, (2, 9, 2 * 8), 3), torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown kernel 'wgmma'"):
+        getattr(tattn, f"attention_{name}_fwd")(*xs, 2, 8, kernel="wgmma")
+
+
+class FakeBoardLib:
+    """The shared-memory sizes and limits of csrc/attention_board.cu, as a
+    card-free stand-in: a K6 block of n heads takes 20,000 n bytes."""
+
+    def board_attn_max_tokens(self):
+        return 192
+
+    def board_attn_max_head_dim(self):
+        return 64
+
+    def attn_infold_fwd_mma_smem_bytes(self, l, dh, heads):
+        return 20_000 * heads
+
+
+@pytest.mark.parametrize("kernel,b,per_block,blocks_per_board", [
+    ("lane_slice_fwd", 8192, 6, 1),  # more boards than fit at once: a board a block
+    ("lane_slice_fwd", 384, 6, 1),   # 384 of 528 resident
+    ("lane_slice_fwd", 256, 3, 2),   # 512 of 528
+    ("lane_slice_fwd", 16, 1, 6),    # every query tile its own block
+    ("infold_fwd", 8192, 3, 2),      # at most three heads fit the budget
+    ("infold_fwd", 200, 2, 2),       # 400 of 528 with two heads; 800 with one
+    ("infold_fwd", 100, 1, 4),       # 400 of 528 with one head
+    ("infold_fwd", 16, 1, 4),
+])
+def test_board_mma_plan_splits_a_board_while_all_blocks_stay_resident(
+        monkeypatch, kernel, b, per_block, blocks_per_board):
+    """The rule of ``board_mma_plan`` at 9x9 with four heads of 14 on a card
+    of 132 SMs: the fewest units a block with which every block is resident
+    at once, else the most (K6 within its shared-memory budget)."""
+    blocks_an_sm = {"lane_slice_fwd": {n: 4 for n in range(1, 7)},
+                    "infold_fwd": {1: 4, 2: 4, 3: 3}}
+    monkeypatch.setattr(tattn, "_board_lib", FakeBoardLib)
+    monkeypatch.setattr(tattn, "_board_mma_resources", lambda kernel, l, h, dh, n, device: (
+        128, 0, 20_000 * n, blocks_an_sm[kernel][n]))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: SimpleNamespace(
+        multi_processor_count=132, shared_memory_per_block_optin=232_448))
+    plan = tattn.board_mma_plan.__wrapped__(kernel, b, 81, 4, 14, "cuda")
+    assert (plan.per_block, plan.blocks_per_board, plan.blocks) == (
+        per_block, blocks_per_board, b * blocks_per_board)
+    assert plan.unit == ("query tiles" if kernel == "lane_slice_fwd" else "heads")
+
+
+def test_board_mma_plan_raises_where_a_block_cannot_fit(monkeypatch):
+    monkeypatch.setattr(tattn, "_board_lib", FakeBoardLib)
+    monkeypatch.setattr(tattn, "_board_mma_resources",
+                        lambda *args: (168, 0, 240_000, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: SimpleNamespace(
+        multi_processor_count=132, shared_memory_per_block_optin=232_448))
+    with pytest.raises(KernelError, match="240000 bytes of shared memory"):
+        tattn.board_mma_plan.__wrapped__("lane_slice_fwd", 16, 169, 8, 64, "cuda")
+    with pytest.raises(KernelError, match="beyond the kernel's"):
+        tattn.board_mma_plan.__wrapped__("infold_fwd", 16, 200, 4, 14, "cuda")
 
 
 def test_board_plain_versions_are_the_packed_function():

@@ -302,6 +302,77 @@ def test_packed_backward_dtype_picks_its_kernel(device, monkeypatch, dtype, entr
     assert spies[0].launched + spies[1].launched == [entry]
 
 
+# The tensor-core board forwards (K5 and K6 in bf16): every token count of the
+# registry's boards up to the kernels' limit, the registry's Dh < 32 shapes
+# (four heads of 14, eight of 12: rows that are whole 16-byte words where one
+# head's are not) and two heads of 64, the widest head they take; 5 and 16
+# boards, where a board's work splits over several blocks (query tiles for
+# K5, heads for K6).
+BOARD_MMA_SHAPES = [(l, h, dh) for l in (9, 81, 169, 192) for h, dh in ((4, 14), (8, 12), (2, 64))]
+BOARD_FORWARDS = ((attn.attention_lane_slice_fwd, attn.attention_lane_slice_reference),
+                  (attn.attention_infold_fwd, attn.attention_infold_reference))
+
+
+def f64_forward(q, k, v, h, dh):
+    """The plain version's arithmetic in f64, with its bf16 rounding points
+    (p before P V, the output)."""
+    qf, kf, vf = (attn._packed_to_heads(t, h, dh).double() for t in (q, k, v))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(1, 2)) / dh**0.5, -1)
+    o = torch.matmul(p.to(torch.bfloat16).double(), vf)
+    return attn._heads_to_packed(o.to(torch.bfloat16), q.shape[0], h)
+
+
+def run_twice(fwd, q, k, v, h, dh):
+    before = fwd.launches
+    got = fwd(q, k, v, h, dh)
+    again = fwd(q, k, v, h, dh)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 2
+    assert torch.equal(got, again), f"{fwd.__name__}: the tensor-core forward is not deterministic"
+    return got
+
+
+@pytest.mark.parametrize("b", [5, 16])
+@pytest.mark.parametrize("l,h,dh", BOARD_MMA_SHAPES)
+def test_board_forwards_tensor_cores_within_tolerance(device, b, l, h, dh):
+    q, k, v = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True, n=3)
+    for fwd, ref in BOARD_FORWARDS:
+        got = run_twice(fwd, q, k, v, h, dh)
+        want = ref(q, k, v, h, dh)
+        assert_attn_close(got, want, torch.bfloat16, f"{fwd.__name__} o")
+        assert_attn_close(fwd(q, k, v, h, dh, kernel="fma"), want, torch.bfloat16,
+                          f"{fwd.__name__} fma o")
+
+
+# 150 boards, more than the card's SMs (chip_smoke.py runs the plans of a
+# board a block, at 8192, 2048 and 384 boards). The tensor-core
+# kernels are held against the f64 computation, whose scores they share up
+# to f32 rounding of each 16-deep product; the FMA first versions, which sum
+# the scores in the plain version's order, against the plain version. At (9,
+# 2, 64) the plain version rounds one p to the other side of a bf16 step
+# from the f64 computation and is 1.08 of the limit from it, where the
+# tensor-core K5, K6 and K8 are exact (utils/board_attn_study.py --numerics).
+@pytest.mark.parametrize("l,h,dh", BOARD_MMA_SHAPES)
+def test_board_forwards_at_150_boards_within_tolerance(device, l, h, dh):
+    b = 150
+    q, k, v = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True, n=3)
+    exact = f64_forward(q, k, v, h, dh)
+    for fwd, ref in BOARD_FORWARDS:
+        assert_attn_close(run_twice(fwd, q, k, v, h, dh), exact, torch.bfloat16, f"{fwd.__name__} o")
+        assert_attn_close(fwd(q, k, v, h, dh, kernel="fma"), ref(q, k, v, h, dh), torch.bfloat16,
+                          f"{fwd.__name__} fma o")
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_mma_launch"), (torch.float32, "_launch")])
+@pytest.mark.parametrize("kernel", ["lane_slice_fwd", "infold_fwd"])
+def test_board_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, suffix, kernel):
+    spy = EntrySpy(attn._board_lib())
+    monkeypatch.setattr(attn, "_board_lib", lambda: spy)
+    getattr(attn, f"attention_{kernel}")(
+        *attn_inputs(device, dtype, 8, 81, 4, 14, packed=True, n=3), 4, 14)
+    assert spy.launched == [f"attn_{kernel}{suffix}"]
+
+
 def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):
     """f32 at 13x13, d96: five slabs of the whole board exceed a block's
     shared memory, so the backward takes the heads in groups; same result."""

@@ -305,9 +305,9 @@ def code_of(path):
 
 
 @pytest.mark.parametrize("name", ["resblock.cu", "attention.cu", "attention_bwd.cu",
-                                  "mma_common.cuh", "attn_mma.cuh"])
+                                  "attention_board.cu", "mma_common.cuh", "attn_mma.cuh"])
 def test_tensor_core_sources_call_no_library_kernel(name):
-    """The bf16 K2, K3, K8 and K9 compute inside their own bodies: no header
+    """The bf16 K2, K3, K5, K6, K8 and K9 compute inside their own bodies: no header
     beyond CUDA's runtime ones and the port's, no library GEMM, convolution
     or attention, and the products are the port's own ``mma.sync`` wrapper."""
     code = code_of(CSRC / name)
