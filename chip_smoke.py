@@ -24,10 +24,9 @@ Phases, in order; any failure exits non-zero:
    in-kernel-fold forward and backward, a block per board) against their
    plain versions, bf16 and f32, at the shapes the paths give them (update
    minibatch, rollout and validation batch, a tournament half-pairing) and
-   at odd, small and wide ones, within the stated tolerances; K3, K5, K6,
-   K8 and K9 in bf16 (the tensor-core kernels) run twice: the same bits;
-   their first, FMA versions on the same bf16 inputs are held to the same
-   limit;
+   at odd, small and wide ones, within the stated tolerances; all seven in
+   bf16 (the tensor-core kernels) run twice: the same bits; their first,
+   FMA versions on the same bf16 inputs are held to the same limit;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -67,11 +66,11 @@ Phases, in order; any failure exits non-zero:
    kernels: its forward, and forward plus backward beside the backward
    kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
    minibatch and at the rollout batch of 384, K5-K7 also at a tournament
-   half-pairing of 16; K2, K3, K5, K6, K8 and K9 in bf16 also through their
-   first version, the FMA kernel (``first_version_ms``); the tensor-core
-   instantiations of K5, K6, K8 and K9 on the paths with their registers,
-   spill bytes and blocks an SM, and for K5 and K6 the block's unit of work
-   at each timed batch; the
+   half-pairing of 16; K2 and the seven attention kernels in bf16 also
+   through their first version, the FMA kernel (``first_version_ms``); the
+   tensor-core instantiations of K4-K9 on the paths with their registers,
+   spill bytes and blocks an SM, and for K5, K6 and K7 the block's unit of
+   work at each timed batch; the
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
    lane slice) at the 9x9 and 13x13 batches of either kind, layout
    operations included, for the dispatch (the ``threshold`` line); one
@@ -147,9 +146,9 @@ ATTN_KERNELS = {
     "attn_packed_fwd": ("packed", False, f"{PALLAS}:303", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
     "attn_packed_bwd": ("packed", True, f"{PALLAS}:575", HEAD_SOURCE, (169, 2, 64), (4096, 384)),
 }
-# The attention kernels that run on the tensor cores in bf16.
-TENSOR_CORE_KERNELS = ("attn_folded_fwd", "attn_packed_fwd", "attn_packed_bwd",
-                       "attn_lane_slice_fwd", "attn_infold_fwd")
+# The attention kernels that run on the tensor cores in bf16: all seven.
+TENSOR_CORE_KERNELS = ("attn_folded_fwd", "attn_folded_bwd", "attn_packed_fwd", "attn_packed_bwd",
+                       "attn_lane_slice_fwd", "attn_infold_fwd", "attn_infold_bwd")
 # (L, Dh) of K8's tensor-core instantiations on the paths: 13x13 with two
 # heads of 64 (path B, the 13x13 tournament) and with eight of 12 (the
 # no-gradient forwards of transformer_b_l and transformer_c_l), 9x9 with
@@ -159,14 +158,20 @@ K8_INSTANTIATIONS = ((169, 64), (169, 12), (81, 32), (192, 64))
 # (13x13, heads of 64) and the updates of transformer_s and transformer_l
 # (9x9, heads of 32).
 K9_INSTANTIATIONS = ((169, 64), (81, 32))
-# (L, H, Dh) of K5's and K6's tensor-core instantiations on the paths: the
-# 9x9 models (four heads of 14), 13x13 with four heads of 14 (K5 takes it:
-# 676 head rows a board), 13x13 with eight heads of 12 (the board shapes and
-# K6's forced route) and the 3x3 board.
+# (L, Dh) of K4's tensor-core instantiations on the paths: the 9x9 updates
+# of path A and path C's family (four heads of 14), 13x13 with four heads of
+# 14 and with eight of 12 (the with-gradient forwards of the 13x13 Dh < 32
+# models), and the 3x3 board.
+K4_INSTANTIATIONS = ((81, 14), (169, 14), (169, 12), (9, 14))
+# (L, H, Dh) of K5's, K6's and K7's tensor-core instantiations on the paths:
+# the 9x9 models (four heads of 14), 13x13 with four heads of 14 (K5 takes
+# it: 676 head rows a board), 13x13 with eight heads of 12 (the board shapes
+# and the forced in-kernel fold) and the 3x3 board.
 BOARD_INSTANTIATIONS = ((81, 4, 14), (169, 4, 14), (169, 8, 12), (9, 4, 14))
-INSTANTIATIONS = {"attn_packed_fwd": K8_INSTANTIATIONS, "attn_packed_bwd": K9_INSTANTIATIONS,
+INSTANTIATIONS = {"attn_folded_bwd": K4_INSTANTIATIONS, "attn_packed_fwd": K8_INSTANTIATIONS,
+                  "attn_packed_bwd": K9_INSTANTIATIONS,
                   "attn_lane_slice_fwd": BOARD_INSTANTIATIONS,
-                  "attn_infold_fwd": BOARD_INSTANTIATIONS}
+                  "attn_infold_fwd": BOARD_INSTANTIATIONS, "attn_infold_bwd": BOARD_INSTANTIATIONS}
 # (B, L, H, Dh) at which every route through an attention kernel is timed:
 # the update minibatch, then the rollout batch of 384 at the registry's four
 # Dh < 32 shapes (9x9 or 13x13, four heads of 14 or eight of 12), a
@@ -732,10 +737,10 @@ def attention_kernel_records(torch, dev, launches, attn_errors):
 
 
 def instantiations(torch, dev, name):
-    """What each tensor-core instantiation on the paths of K5, K6, K8 or K9
-    takes on the card (registers, spill bytes, shared memory, blocks an SM);
-    for K5 and K6 also the block's unit of work at each batch the kernel is
-    timed at."""
+    """What each tensor-core instantiation on the paths of K4-K9 takes on the
+    card (registers, spill bytes, shared memory, blocks an SM); for K5, K6
+    and K7 also the block's unit of work at each batch the kernel is timed
+    at."""
     from rl_selfplay_mnk_tpu_torch.ops.attention import board_mma_plan, mma_resources
 
     kernel = name.removeprefix("attn_")

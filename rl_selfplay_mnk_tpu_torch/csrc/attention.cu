@@ -47,11 +47,13 @@
 // (attn_packed_fwd_mma) is the same kernel on [token][channel] slabs, staged
 // by cp.async (see there).
 //
-// The packed backward in bf16 (attn_packed_bwd_mma) is in attention_bwd.cu,
-// built by its own nvcc; the pieces it shares with K3 and K8 are in
+// The packed backward in bf16 (attn_packed_bwd_mma) is in attention_bwd.cu
+// and the folded backward in bf16 (attn_folded_bwd_mma) in
+// attention_folded_bwd.cu, each built by its own nvcc; the pieces they share
+// with K3 and K8 (K3's span staging, move_span, among them) are in
 // attn_mma.cuh.
 //
-// The other kernels here, and both forwards and the packed backward in f32
+// The other kernels here, and both forwards and both backwards in f32
 // (a tensor-core product of f32 data would round to TF32), do their products
 // with FMA on the CUDA cores out of shared memory, and that is what bounds
 // them.
@@ -584,61 +586,6 @@ int packed_bwd(const void* q, const void* k, const void* v, const void* g, void*
 __host__ __device__ inline size_t folded_mma_smem_bytes(int L, int dh, int heads) {
     return static_cast<size_t>(heads) * 3 * 16 * channel_tiles(dh)
            * padded_row_elems(16 * key_tiles(L)) * sizeof(bf16);
-}
-
-// Where element e of a span of consecutive heads' (Dh, L) slabs sits in the
-// heads' [dpad][ld] shared slabs, without a branch.
-struct SlabMap {
-    FastDiv per_head, per_row;  // by Dh * L, by L
-    int head_stride, ld;
-    __device__ __forceinline__ int operator()(uint32_t e) const {
-        const uint32_t h = per_head(e), r = e - h * per_head.d;
-        const uint32_t d = per_row(r);
-        return h * head_stride + d * ld + (r - d * per_row.d);
-    }
-};
-
-// Device span (n elements) <-> the heads' shared slabs. 16-byte accesses
-// where the span is aligned, single elements at its two ends; a thread
-// starts kChunksInFlight loads before it scatters the first.
-constexpr int kChunksInFlight = 4;
-
-template <bool kLoad>
-__device__ __forceinline__ void move_span(bf16* __restrict__ dev, bf16* smem, int n, SlabMap at) {
-    const int misalign = static_cast<int>((reinterpret_cast<uintptr_t>(dev) & 15) / sizeof(bf16));
-    const int lead = min(n, (8 - misalign) & 7);
-    const int chunks = (n - lead) / 8;
-    const int tail = lead + 8 * chunks;
-    for (int e = threadIdx.x; e < lead + (n - tail); e += blockDim.x) {
-        const int i = e < lead ? e : tail + (e - lead);
-        if (kLoad) smem[at(i)] = dev[i];
-        else dev[i] = smem[at(i)];
-    }
-    uint4* dev_chunks = reinterpret_cast<uint4*>(dev + lead);
-    for (int c0 = threadIdx.x; c0 < chunks; c0 += kChunksInFlight * blockDim.x) {
-        uint4 raw[kChunksInFlight];
-        if (kLoad) {
-#pragma unroll
-            for (int u = 0; u < kChunksInFlight; ++u) {
-                const int c = c0 + u * blockDim.x;
-                if (c < chunks) raw[u] = dev_chunks[c];
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < kChunksInFlight; ++u) {
-            const int c = c0 + u * blockDim.x;
-            if (c < chunks) {
-                bf16* v = reinterpret_cast<bf16*>(&raw[u]);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) {
-                    const int s = at(lead + 8 * c + e);
-                    if (kLoad) smem[s] = v[e];
-                    else v[e] = smem[s];
-                }
-                if (!kLoad) dev_chunks[c] = raw[u];
-            }
-        }
-    }
 }
 
 // kKT: 16-key tiles (also 16-row query tiles) a head is padded to, kDK:

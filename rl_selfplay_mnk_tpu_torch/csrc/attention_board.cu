@@ -18,11 +18,12 @@
 //
 // Bound: as in attention.cu, bytes at the shapes the models give (a forward
 // moves 4*B*L*D elements, a backward 7*B*L*D): 0.089 ms for a forward at the
-// 9x9 update's minibatch (B = 8192, L = 81, H = 4, Dh = 14, bf16). The bf16
-// forwards (attn_lane_slice_fwd_mma, attn_infold_fwd_mma, below) do both
-// products on the tensor cores; the other kernels, and both forwards in f32
-// (a tensor-core product of f32 data would round to TF32), do them with FMA
-// on the CUDA cores out of shared memory, which is what bounds them.
+// 9x9 update's minibatch (B = 8192, L = 81, H = 4, Dh = 14, bf16), 0.155 ms
+// for a backward. The bf16 forwards (attn_lane_slice_fwd_mma,
+// attn_infold_fwd_mma) and the bf16 backward (attn_infold_bwd_mma), below,
+// do their products on the tensor cores; the other kernels, and all three
+// in f32 (a tensor-core product of f32 data would round to TF32), do them
+// with FMA on the CUDA cores out of shared memory, which is what bounds them.
 //
 // Design of the FMA kernels. A board's rows are D*itemsize bytes, a multiple of 16 at every
 // registry width, so q, k, v (and dO) come in, and the results go out, as
@@ -748,12 +749,6 @@ __device__ __forceinline__ uint32_t pair_at(const bf16* row, int c, int dh, bool
     return c < dh ? bits_of(row[c]) : 0u;
 }
 
-// A b16x2 fragment register with its depth (channel) pair starting at c:
-// the halves at or past dh zeroed.
-__device__ __forceinline__ uint32_t within(uint32_t r, int c, int dh) {
-    return c + 1 < dh ? r : c < dh ? (r & 0xffffu) : 0u;
-}
-
 // O's fragments (oacc[u]: rows i0 + g and i0 + g + 8, channels 8u + 2t and
 // 8u + 2t + 1) -> a head's columns of a row-major slab at `head`, rows
 // below `rows` only.
@@ -1028,6 +1023,93 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kBoardMinBlocks<kKT, kDK>) att
     });
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: attn_infold_bwd_mma (K7)
+// ---------------------------------------------------------------------------
+//
+// K6's staging and the backward core of attn_mma.cuh (fold_bwd_query_rows,
+// fold_bwd_key_rows: K9's two passes on [channel][token] slabs, shared with
+// K4). A block stages its heads' columns of q, k, v and dO row-major by
+// 16-byte cp.async, transposes all four on chip into [channel][token] slabs
+// (transpose_slab), and runs pass 1 (a warp per 16 query rows of a head:
+// the row statistics and dq) and pass 2 (a warp per 16 key rows: dk and dv).
+// The gradients leave the tensor cores as (token, channel) fragments, the
+// board's own layout: dq goes over q's row-major slab, dk and dv over k's and
+// v's, all free once transposed, and they leave row-major in 16-byte words,
+// as K6's O does. No atomics: the same bits every run. A block's unit is a
+// group of heads of one board (board_mma_plan, "infold_bwd"): at (81, 14)
+// two heads take 55 KiB, and three blocks share an SM.
+
+// Shared memory of a K7 block of `heads` heads: their columns of q, k, v and
+// dO row-major, [16 kKT][padded_row_elems(heads Dh)], then transposed,
+// [heads Dh][16 kKT + 8], then each head's three row statistics (max,
+// 1 / sum, row) of its 16 kKT query rows.
+__host__ __device__ inline size_t infold_bwd_mma_smem_bytes(int L, int dh, int heads) {
+    const size_t tokens = 16 * key_tiles(L), width = static_cast<size_t>(heads) * dh;
+    return 4 * (tokens * padded_row_elems(heads * dh) + width * (tokens + 8)) * sizeof(bf16)
+           + 3 * heads * tokens * sizeof(float);
+}
+
+// kKT, kDK as for K5. A block takes heads [h0, h0 + heads) of board
+// blockIdx.x / parts, h0 = heads * (blockIdx.x % parts).
+template <int kKT, int kDK>
+__global__ void __launch_bounds__(kMmaWarps * 32, kFoldBwdMinBlocks<kKT, kDK>) attn_infold_bwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g_out, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int L, int H, int dh, int heads, int parts, int word_bytes, float scale)
+{
+    constexpr int kTokens = 16 * kKT, kLdl = kTokens + 8;  // padded_row_elems(kTokens)
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int D = H * dh, ld = padded_row_elems(heads * dh);
+    const int rslab = kTokens * ld, tslab = heads * dh * kLdl;
+    bf16* rows = reinterpret_cast<bf16*>(smem_raw);  // q, k, v, dO row-major; dq, dk, dv over the first three
+    bf16* cols = rows + 4 * rslab;                     // q, k, v, dO transposed
+    float* stats = reinterpret_cast<float*>(cols + 4 * tslab);  // [head][3][16 kKT]
+    const int board_index = blockIdx.x / parts;
+    const int h0 = heads * (blockIdx.x - board_index * parts);
+    const int nh = min(heads, H - h0), width = nh * dh;
+    const size_t board = static_cast<size_t>(board_index) * L * D;
+    const bf16* const src[4] = {q, k, v, g_out};
+    in_words(word_bytes, [&](auto word) {
+        constexpr int kBytes = decltype(word)::value;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+            stage_rows<kBytes>(src[t] + board, rows + t * rslab, ld, D, h0 * dh, width, 0, L, kTokens);
+    });
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t = 0; t < 4; ++t) transpose_slab<kTokens>(rows + t * rslab, ld, cols + t * tslab, width);
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const uint32_t cols_at = shared_address(cols);
+    // A head's rows of the transposed slabs; channel rows past the block's
+    // last head are read from its last row.
+    auto head = [&](int hl) {
+        const uint32_t q_at = cols_at + hl * dh * kLdl * 2;
+        return FoldHead{q_at, q_at + tslab * 2, q_at + 2 * tslab * 2, q_at + 3 * tslab * 2,
+                        width - 1 - hl * dh};
+    };
+    using Frags = float[2 * kDK][4];
+    // The gradients over q's, k's and v's row-major slabs, the board's layout.
+    fold_bwd_passes<kKT, kDK>(
+        nh, L, dh, scale, stats, head,
+        [&](int hl, int i0, const Frags& dqa) {
+            put_output<kDK>(rows + hl * dh, ld, dqa, i0, L, dh, lane);
+        },
+        [&](int hl, int j0, const Frags& dka, const Frags& dva) {
+            put_output<kDK>(rows + rslab + hl * dh, ld, dka, j0, L, dh, lane);
+            put_output<kDK>(rows + 2 * rslab + hl * dh, ld, dva, j0, L, dh, lane);
+        });
+    __syncthreads();
+    in_words(word_bytes, [&](auto word) {
+        constexpr int kBytes = decltype(word)::value;
+        store_rows<kBytes>(dq + board, rows, ld, D, h0 * dh, width, 0, L);
+        store_rows<kBytes>(dk + board, rows + rslab, ld, D, h0 * dh, width, 0, L);
+        store_rows<kBytes>(dv + board, rows + 2 * rslab, ld, D, h0 * dh, width, 0, L);
+    });
+}
+
 // The widest word, 16 bytes at most, that divides 2 D, 2 cols (the columns
 // of a block, and so their first column) and the tensors' addresses.
 int board_word_bytes(const void* q, const void* k, const void* v, const void* o, int D, int cols) {
@@ -1072,6 +1154,28 @@ int infold_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, 
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), L, H, dh, heads, parts,
         board_word_bytes(q, k, v, o, H * dh, heads * dh), 1.0f / sqrtf(static_cast<float>(dh)));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKT, int kDK>
+cudaError_t infold_bwd_mma_setup() {
+    static bool done = false;
+    return mma_setup(attn_infold_bwd_mma<kKT, kDK>, done);
+}
+
+template <int kKT, int kDK>
+int infold_bwd_mma(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                   void* dv, int B, int L, int H, int dh, int heads, cudaStream_t stream) {
+    const cudaError_t err = infold_bwd_mma_setup<kKT, kDK>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int parts = (H + heads - 1) / heads;
+    const void* const tensors[] = {q, k, v, g, dq, dk, dv};
+    attn_infold_bwd_mma<kKT, kDK><<<B * parts, kMmaWarps * 32,
+                                    infold_bwd_mma_smem_bytes(L, dh, heads), stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), L, H, dh, heads, parts,
+        packed_word_bytes(tensors, H * dh | heads * dh), 1.0f / sqrtf(static_cast<float>(dh)));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1172,10 +1276,10 @@ extern "C" int attn_infold_bwd_launch(int is_bf16, const void* q, const void* k,
         : infold_bwd<float>(q, k, v, g, dq, dk, dv, B, L, H, dh, heads_per_pass, threads, s);
 }
 
-// The bf16 forwards on the tensor cores (is_bf16 = 1), four warps a block.
-// K5: `tiles` query tiles of one board a block; K6: `heads` heads of one
-// board a block. Their shared memory, and what an instantiation takes on the
-// card (registers, local bytes, blocks an SM at that shared memory).
+// The bf16 kernels on the tensor cores (is_bf16 = 1), four warps a block.
+// K5: `tiles` query tiles of one board a block; K6 and K7: `heads` heads of
+// one board a block. Their shared memory, and what an instantiation takes on
+// the card (registers, local bytes, blocks an SM at that shared memory).
 extern "C" size_t attn_lane_slice_fwd_mma_smem_bytes(int L, int H, int dh) {
     return lane_slice_mma_smem_bytes(L, H, dh);
 }
@@ -1229,6 +1333,35 @@ extern "C" int attn_infold_fwd_mma_resources(int L, int dh, int heads, int* regi
         const cudaError_t err = infold_mma_setup<kKT, kDK>();
         if (err != cudaSuccess) return static_cast<int>(err);
         return mma_resources(attn_infold_fwd_mma<kKT, kDK>, infold_mma_smem_bytes(L, dh, heads),
+                             registers, local_bytes, blocks_per_sm);
+    });
+}
+
+extern "C" size_t attn_infold_bwd_mma_smem_bytes(int L, int dh, int heads) {
+    return infold_bwd_mma_smem_bytes(L, dh, heads);
+}
+
+extern "C" int attn_infold_bwd_mma_launch(int is_bf16, const void* q, const void* k, const void* v,
+                                          const void* g, void* dq, void* dk, void* dv, int B,
+                                          int L, int H, int dh, int heads, void* stream) {
+    if (B == 0) return 0;
+    if (!is_bf16 || !shape_ok(B, L, H, dh, heads, kMmaWarps * 32))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk_tiles) {
+        return infold_bwd_mma<decltype(kt)::value, decltype(dk_tiles)::value>(
+            q, k, v, g, dq, dk, dv, B, L, H, dh, heads, static_cast<cudaStream_t>(stream));
+    });
+}
+
+extern "C" int attn_infold_bwd_mma_resources(int L, int dh, int heads, int* registers,
+                                             int* local_bytes, int* blocks_per_sm) {
+    if (!shape_ok(1, L, heads, dh, heads, kMmaWarps * 32))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return for_tiles(L, dh, [&](auto kt, auto dk_tiles) {
+        constexpr int kKT = decltype(kt)::value, kDK = decltype(dk_tiles)::value;
+        const cudaError_t err = infold_bwd_mma_setup<kKT, kDK>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return mma_resources(attn_infold_bwd_mma<kKT, kDK>, infold_bwd_mma_smem_bytes(L, dh, heads),
                              registers, local_bytes, blocks_per_sm);
     });
 }

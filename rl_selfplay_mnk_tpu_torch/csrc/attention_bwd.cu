@@ -77,13 +77,6 @@
 
 namespace {
 
-// Registers a thread of the instantiation is expected to need at its peak
-// (pass 1's S and dP, dQ's sums, addresses), and from that the blocks an SM
-// is asked to hold: 4 (128 registers a thread), 3 (168) or 2 (255).
-template <int kKT, int kDK>
-constexpr int kBwdMinBlocks = 16 * kKT + 8 * kDK + 16 <= 88 ? 4
-                              : 16 * kKT + 8 * kDK + 16 <= 160 ? 3 : 2;
-
 // Shared memory of one block: `heads` heads' four slabs (q, k, v, dO in
 // that order), then each head's three row statistics (max, 1 / sum, row) of
 // its 16 key_tiles(L) query rows.

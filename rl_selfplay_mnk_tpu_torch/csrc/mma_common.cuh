@@ -91,6 +91,16 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a . b on one 16 x 8 x 8 tile: a0, a1 and b are the first (or the
+// second) half of the depth of m16n8k16's a0, a1 (or a2, a3) and b0 (or b1).
+__device__ __forceinline__ void mma_bf16_1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b));
+}
+
 // Two floats rounded to bf16 (nearest even) in one register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -27,17 +27,18 @@ Each pair is a ``torch.autograd.Function`` that saves q, k, v only and
 recomputes the probabilities in its backward; the incoming gradient is cast
 to q's dtype first.
 
-On the H100 both directions are bound by bytes at the models' shapes. The
-bf16 forwards (K3, ``folded_fwd_kernel_for``; K8, ``packed_fwd_kernel_for``;
-K5, ``lane_slice_fwd_kernel_for``; K6, ``infold_fwd_kernel_for``) do their
-two products on the tensor cores (``mma.sync``), a warp per 16 query rows
-with the scores and probabilities in registers; so does the bf16 packed
-backward (K9, ``packed_bwd_kernel_for``; ``csrc/attention_bwd.cu``), a warp
-per 16 query rows and then per 16 key rows. The other kernels, and K3, K5,
-K6, K8 and K9 in f32, hold a head or a board in shared memory
-(``csrc/attention.cu``, ``csrc/attention_board.cu``) and do their products
-with FMA on the CUDA cores, which bound them for now. ``kernel="fma"`` runs
-that first version on bf16 too.
+On the H100 both directions are bound by bytes at the models' shapes. In
+bf16 every kernel does its products on the tensor cores (``mma.sync``): the
+forwards (K3, ``folded_fwd_kernel_for``; K8, ``packed_fwd_kernel_for``; K5,
+``lane_slice_fwd_kernel_for``; K6, ``infold_fwd_kernel_for``) a warp per 16
+query rows with the scores and probabilities in registers; the backwards
+(K9, ``packed_bwd_kernel_for``, ``csrc/attention_bwd.cu``; K4,
+``folded_bwd_kernel_for``, ``csrc/attention_folded_bwd.cu``; K7,
+``infold_bwd_kernel_for``, ``csrc/attention_board.cu``) a warp per 16 query
+rows and then per 16 key rows. In f32 they are the first versions, which
+hold a head or a board in shared memory (``csrc/attention.cu``,
+``csrc/attention_board.cu``) and do their products with FMA on the CUDA
+cores. ``kernel="fma"`` runs that first version on bf16 too.
 
 The seven launch wrappers (``attention_folded_fwd``, ``attention_folded_bwd``,
 ``attention_packed_fwd``, ``attention_packed_bwd``,
@@ -202,18 +203,34 @@ def _lib():
     return lib
 
 
+def _bind_bwd_mma(lib, kernel: str, dims: int):
+    """argtypes of a tensor-core backward's three entries: its launch (with
+    ``dims`` ints after the seven pointers), shared bytes and resources."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = getattr(lib, f"attn_{kernel}_mma_launch")
+    launch.argtypes = [i] + [p] * 7 + [i] * dims + [p]
+    getattr(lib, f"attn_{kernel}_mma_smem_bytes").argtypes = [i] * 3
+    getattr(lib, f"attn_{kernel}_mma_smem_bytes").restype = ctypes.c_size_t
+    resources = getattr(lib, f"attn_{kernel}_mma_resources")
+    resources.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
+    launch.restype = resources.restype = i
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     """``csrc/attention_bwd.cu``: the tensor-core K9, built beside
     ``attention.cu`` by its own nvcc."""
     lib = load_library("attention_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attn_packed_bwd_mma_launch.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
-    lib.attn_packed_bwd_mma_smem_bytes.argtypes = [i] * 3
-    lib.attn_packed_bwd_mma_smem_bytes.restype = ctypes.c_size_t
-    lib.attn_packed_bwd_mma_resources.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
-    for fn in (lib.attn_packed_bwd_mma_launch, lib.attn_packed_bwd_mma_resources):
-        fn.restype = i
+    _bind_bwd_mma(lib, "packed_bwd", 5)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _folded_bwd_lib():
+    """``csrc/attention_folded_bwd.cu``: the tensor-core K4, built by its own
+    nvcc."""
+    lib = load_library("attention_folded_bwd")
+    _bind_bwd_mma(lib, "folded_bwd", 4)
     return lib
 
 
@@ -244,6 +261,12 @@ def packed_bwd_kernel_for(dtype: torch.dtype) -> str:
     return _kernel_for("attention_packed_bwd", dtype)
 
 
+def folded_bwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K4 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, as K8."""
+    return _kernel_for("attention_folded_bwd", dtype)
+
+
 def lane_slice_fwd_kernel_for(dtype: torch.dtype) -> str:
     """The kernel K5 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
     ``"fma"`` (the CUDA cores) for f32, as K8."""
@@ -254,6 +277,12 @@ def infold_fwd_kernel_for(dtype: torch.dtype) -> str:
     """The kernel K6 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
     ``"fma"`` (the CUDA cores) for f32, as K8."""
     return _kernel_for("attention_infold_fwd", dtype)
+
+
+def infold_bwd_kernel_for(dtype: torch.dtype) -> str:
+    """The kernel K7 takes for a dtype: ``"mma"`` (tensor cores) for bf16,
+    ``"fma"`` (the CUDA cores) for f32, as K8."""
+    return _kernel_for("attention_infold_bwd", dtype)
 
 
 KERNELS = ("mma", "fma")  # what a wrapper's ``kernel`` may name
@@ -276,24 +305,27 @@ def _kernel_on_card(name: str, dtype: torch.dtype, kernel) -> str:
 
 _MMA_MAX_HEADS = 4  # csrc/attn_mma.cuh kMmaMaxHeads
 # A block of a tensor-core kernel takes heads while they fit this much shared
-# memory: three or more blocks an SM for the forwards; three for K9 where a
-# head is small (two heads of (81, 32)), while its (169, 64) head alone takes
-# 101 KiB (two blocks an SM).
-_MMA_HEADS_SMEM = {"folded_fwd": 64 * 1024, "packed_fwd": 64 * 1024, "packed_bwd": 74 * 1024}
+# memory: three or more blocks an SM for the forwards; three for the
+# backwards where a head is small (two heads of (81, 32) for K9, four of
+# (81, 14) for K4), while K9's (169, 64) head alone takes 101 KiB (two
+# blocks an SM).
+_MMA_HEADS_SMEM = {"folded_fwd": 64 * 1024, "packed_fwd": 64 * 1024, "packed_bwd": 74 * 1024,
+                   "folded_bwd": 74 * 1024}
 
 
 def _mma_entry(kernel: str, what: str):
     """``attn_<kernel>_mma_<what>`` of a tensor-core kernel's library: K9's
-    own, or that of ``attention.cu``."""
-    lib = _bwd_lib() if kernel == "packed_bwd" else _lib()
+    or K4's own, or that of ``attention.cu``."""
+    lib = {"packed_bwd": _bwd_lib, "folded_bwd": _folded_bwd_lib}.get(kernel, _lib)()
     return getattr(lib, f"attn_{kernel}_mma_{what}")
 
 
 @functools.lru_cache(maxsize=None)
 def _mma_heads(kernel: str, l: int, dh: int, device: torch.device) -> int:
-    """Heads a block of the tensor-core K3 (``kernel`` "folded_fwd"), K8
-    ("packed_fwd") or K9 ("packed_bwd") takes: up to four, while their slabs
-    fit ``_MMA_HEADS_SMEM[kernel]``, and one where a single head needs more."""
+    """Heads a block of the tensor-core K3 (``kernel`` "folded_fwd"), K4
+    ("folded_bwd"), K8 ("packed_fwd") or K9 ("packed_bwd") takes: up to four,
+    while their slabs fit ``_MMA_HEADS_SMEM[kernel]``, and one where a single
+    head needs more."""
     lib = _lib()
     if l > lib.attn_max_tokens() or dh > lib.attn_max_head_dim():
         raise KernelError(
@@ -309,10 +341,10 @@ def _mma_heads(kernel: str, l: int, dh: int, device: torch.device) -> int:
 
 
 def mma_resources(kernel: str, l: int, dh: int, device: torch.device) -> dict:
-    """What the tensor-core K8 (``kernel`` "packed_fwd") or K9 ("packed_bwd")
-    for heads of (L, Dh) takes on the card: the registers and local (spill)
-    bytes of a thread, the heads and shared bytes of a block, and the blocks
-    that fit an SM."""
+    """What the tensor-core K4 (``kernel`` "folded_bwd"), K8 ("packed_fwd")
+    or K9 ("packed_bwd") for heads of (L, Dh) takes on the card: the
+    registers and local (spill) bytes of a thread, the heads and shared bytes
+    of a block, and the blocks that fit an SM."""
     entry = _mma_entry(kernel, "resources")
     heads = _mma_heads(kernel, l, dh, device)
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -365,6 +397,7 @@ def _board_lib():
         getattr(lib, f"attn_{kernel}_mma_smem_bytes").argtypes = [i] * 3
         getattr(lib, f"attn_{kernel}_mma_smem_bytes").restype = ctypes.c_size_t
         getattr(lib, f"attn_{kernel}_mma_resources").argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
+    _bind_bwd_mma(lib, "infold_bwd", 5)
     for fn in (lib.attn_lane_slice_fwd_launch, lib.attn_infold_fwd_launch,
                lib.attn_infold_bwd_launch, lib.attn_lane_slice_fwd_mma_launch,
                lib.attn_infold_fwd_mma_launch, lib.attn_lane_slice_fwd_mma_resources,
@@ -398,7 +431,7 @@ def _board_plan(kind: str, l: int, h: int, dh: int, itemsize: int, device: torch
     )
 
 
-# K6 on the tensor cores takes no more heads a block than fit this much
+# K6 and K7 on the tensor cores take no more heads a block than fit this much
 # shared memory, so that three blocks share an SM.
 _INFOLD_MMA_SMEM = 75 * 1024
 
@@ -415,8 +448,8 @@ def _board_limits(name: str, l: int, dh: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _board_mma_resources(kernel: str, l: int, h: int, dh: int, per_block: int,
                          device: torch.device) -> tuple:
-    """(registers, local (spill) bytes) a thread of the tensor-core K5 or K6
-    instantiation for (L, Dh) takes, a block's shared bytes with
+    """(registers, local (spill) bytes) a thread of the tensor-core K5, K6 or
+    K7 instantiation for (L, Dh) takes, a block's shared bytes with
     ``per_block`` units, and the blocks that fit an SM with them."""
     lib = _board_lib()
     shape = (l, h, dh) if kernel == "lane_slice_fwd" else (l, dh, per_block)
@@ -430,10 +463,10 @@ def _board_mma_resources(kernel: str, l: int, h: int, dh: int, per_block: int,
 
 
 class BoardPlan(NamedTuple):
-    """A block's unit of work for the tensor-core K5 or K6 at one batch, and
-    what the instantiation takes on the card."""
+    """A block's unit of work for the tensor-core K5, K6 or K7 at one batch,
+    and what the instantiation takes on the card."""
 
-    unit: str               # "query tiles" (K5) or "heads" (K6)
+    unit: str               # "query tiles" (K5) or "heads" (K6, K7)
     per_block: int          # units a block
     blocks_per_board: int
     blocks: int
@@ -448,15 +481,16 @@ def board_mma_plan(kernel: str, b: int, l: int, h: int, dh: int,
                    device: torch.device) -> BoardPlan:
     """A block's unit of work for the tensor-core K5 (``kernel``
     "lane_slice_fwd": 16-row query tiles of one board; a block stages all of
-    the board's k and v rows and its own q rows, whole rows either way) or K6
-    ("infold_fwd": heads of one board, whose columns the block transposes),
-    at B boards of (L, H, Dh).
+    the board's k and v rows and its own q rows, whole rows either way), K6
+    ("infold_fwd") or K7 ("infold_bwd": heads of one board, whose columns the
+    block transposes; a backward needs all of a head's queries, so it splits
+    by heads only), at B boards of (L, H, Dh).
 
     The rule: the fewest units a block, so the most blocks a board, with
     which all B x (blocks a board) blocks are resident on the card at once
     (the SMs times the blocks an SM holds); where even a board a block is
-    more than that, the most units a block. K6 takes no more heads a block
-    than fit ``_INFOLD_MMA_SMEM`` (one at least)."""
+    more than that, the most units a block. K6 and K7 take no more heads a
+    block than fit ``_INFOLD_MMA_SMEM`` (one at least)."""
     _board_limits(kernel, l, dh)
     lib = _board_lib()
     props = torch.cuda.get_device_properties(device)
@@ -465,8 +499,8 @@ def board_mma_plan(kernel: str, b: int, l: int, h: int, dh: int,
         counts = list(range(1, units + 1))
     else:
         unit, units = "heads", h
-        counts = [n for n in range(1, h + 1)
-                  if lib.attn_infold_fwd_mma_smem_bytes(l, dh, n) <= _INFOLD_MMA_SMEM] or [1]
+        smem_bytes = getattr(lib, f"attn_{kernel}_mma_smem_bytes")
+        counts = [n for n in range(1, h + 1) if smem_bytes(l, dh, n) <= _INFOLD_MMA_SMEM] or [1]
     smem = _board_mma_resources(kernel, l, h, dh, counts[0], device)[2]
     if smem > props.shared_memory_per_block_optin:
         raise KernelError(f"attention {kernel}: L={l}, H={h}, Dh={dh} needs {smem} bytes of "
@@ -567,13 +601,23 @@ def attention_folded_fwd(q, k, v, kernel: str | None = None):
                 (bh, dh, l, _mma_heads("folded_fwd", l, dh, q.device)))[0]
 
 
-def attention_folded_bwd(q, k, v, do):
-    """K4: q, k, v, do (BH, Dh, L) -> dq, dk, dv (BH, Dh, L)."""
+def attention_folded_bwd(q, k, v, do, kernel: str | None = None):
+    """K4: q, k, v, do (BH, Dh, L), bf16 or f32 -> dq, dk, dv (BH, Dh, L).
+
+    On the card it launches ``folded_bwd_kernel_for(q.dtype)``, unless
+    ``kernel="fma"`` asks for the FMA kernel on bf16 too (the first version,
+    which chip_smoke.py times beside the tensor-core kernel)."""
+    _known_kernel("attention_folded_bwd", kernel)
     if not _on_card("attention_folded_bwd", q):
         return attention_folded_bwd_reference(q, k, v, do)
     bh, dh, l = _folded_dims("attention_folded_bwd", q)
-    return tuple(_launch(attention_folded_bwd, "attn_folded_bwd_launch", True,
-                         {"q": q, "k": k, "v": v, "do": do}, l, dh, (bh, dh, l)))
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    if _kernel_on_card("attention_folded_bwd", q.dtype, kernel) == "fma":
+        return tuple(_launch(attention_folded_bwd, "attn_folded_bwd_launch", True, tensors, l, dh,
+                             (bh, dh, l)))
+    _checked("attention_folded_bwd", tensors)
+    return tuple(_run(attention_folded_bwd, _folded_bwd_lib().attn_folded_bwd_mma_launch, tensors,
+                      3, (bh, dh, l, _mma_heads("folded_bwd", l, dh, q.device))))
 
 
 def attention_packed_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
@@ -653,14 +697,24 @@ def attention_infold_fwd(q, k, v, h: int, dh: int, kernel: str | None = None):
                       q, k, v, h, dh, kernel)
 
 
-def attention_infold_bwd(q, k, v, do, h: int, dh: int):
-    """K7: q, k, v, do (B, L, H*Dh) -> dq, dk, dv (B, L, H*Dh)."""
+def attention_infold_bwd(q, k, v, do, h: int, dh: int, kernel: str | None = None):
+    """K7: q, k, v, do (B, L, H*Dh), bf16 or f32 -> dq, dk, dv (B, L, H*Dh).
+
+    On the card it launches ``infold_bwd_kernel_for(q.dtype)`` (in bf16 at
+    the block plan of ``board_mma_plan``), unless ``kernel="fma"`` asks for
+    the FMA kernel on bf16 too (the first version, a block per board)."""
+    _known_kernel("attention_infold_bwd", kernel)
     if not _on_card("attention_infold_bwd", q):
         return attention_infold_bwd_reference(q, k, v, do, h, dh)
     dims = _packed_dims("attention_infold_bwd", q, h, dh)
-    return tuple(_launch_board(attention_infold_bwd, "attn_infold_bwd_launch",
-                               "in-kernel-fold backward",
-                               {"q": q, "k": k, "v": v, "do": do}, dims))
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    if _kernel_on_card("attention_infold_bwd", q.dtype, kernel) == "fma":
+        return tuple(_launch_board(attention_infold_bwd, "attn_infold_bwd_launch",
+                                   "in-kernel-fold backward", tensors, dims))
+    _checked("attention_infold_bwd", tensors)
+    per_block = board_mma_plan("infold_bwd", *dims, q.device).per_block
+    return tuple(_run(attention_infold_bwd, _board_lib().attn_infold_bwd_mma_launch, tensors, 3,
+                      (*dims, per_block)))
 
 
 for _wrapper in (attention_folded_fwd, attention_folded_bwd, attention_packed_fwd,

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("env_step", "resblock", "attention", "attention_bwd", "attention_board")
+SOURCES = ("env_step", "resblock", "attention", "attention_bwd", "attention_folded_bwd",
+           "attention_board")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -1,22 +1,30 @@
-"""Where the tensor-core packed attention backward (K9 in bf16) stands on the card.
+"""Where the tensor-core attention backwards (K9, K4 and K7 in bf16) stand on the card.
 
 Usage (from the repository root, one card)::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --numerics
     python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --phases
+    python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --phases --kernels folded_bwd infold_bwd
 
-``--numerics``: at the packed shapes chip_smoke.py checks first, with its
-inputs (the same seeds), the tensor-core kernel, its first version (the FMA
-kernel) and the plain version against each other and against the plain
-version's arithmetic in f64 with the same bf16 rounding points (p before dv,
-ds before dq and dk, the outputs). Each line gives, for dq, dk and dv, the
+``--numerics``: at the shapes chip_smoke.py checks first (K9 at its packed
+shapes, K4 at its folded ones, K7 at its board ones), with its inputs (the
+same seeds), the tensor-core kernel, its first version (the FMA kernel) and
+the plain version against each other and against the plain version's
+arithmetic in f64 with the same bf16 rounding points (p before dv, ds
+before dq and dk, the outputs). Each line gives, for dq, dk and dv, the
 worst error as a share of chip_smoke.py's bf16 limit, the elements past half
-of it, and the share of differing elements over the share allowed.
+of it, and the share of differing elements over the share allowed; then the
+tensor-core kernel's worst element against the plain version, with the
+plain and the f64 value there.
 
-``--phases``: the kernel's time at the update minibatch and at 384 boards,
-whole and with its first pass, its second pass or both compiled out (a
-patched copy of ``csrc/`` built under ``_build/study/``): staging and
-storing alone, and what each pass adds.
+``--phases``: each kernel's time at its update minibatch and at 384 boards
+(K9 at (B, 169, 2, 64), K4 and K7 at (B, 81, 4, 14)), whole and with its
+first pass, its second pass or both compiled out (patched copies of
+``csrc/`` built under ``_build/study/``): staging and storing alone, and
+what each pass adds. For K7 also with its on-chip transpose compiled out,
+besides both passes: what the transpose adds. ``--kernels`` picks among
+``packed_bwd`` (K9), ``folded_bwd`` (K4) and ``infold_bwd`` (K7); all three
+by default.
 """
 
 from __future__ import annotations
@@ -35,25 +43,53 @@ from ..ops import cuda_build
 # at most DIFFER_SHARE of the elements (plus 4) differing.
 RTOL, ATOL_OF_MAX, DIFFER_SHARE = 2.0**-7, 2.0**-10, 2.0**-9
 SHAPES = ((4096, 169, 2, 64), (384, 169, 2, 64), (256, 169, 2, 64), (384, 81, 3, 32))
+# The two pass loops of each tensor-core backward, and K7's transpose.
 PASS_LOOP = "for (int item = warp; item < nh * kKT; item += kMmaWarps) {"
+K7_TRANSPOSE = ("for (int t = 0; t < 4; ++t) transpose_slab<kTokens>(rows + t * rslab, ld, "
+                "cols + t * tslab, width);")
+# kernel -> (its source, the file that holds its pass loops, ints after the
+# seven pointers of its launch entry, the (B, L, H, Dh) it is timed at). K4
+# and K7 share their passes (attn_mma.cuh, fold_bwd_passes): a patched copy
+# of csrc/ builds one source, so it changes one kernel.
+PHASE_KERNELS = {
+    "packed_bwd": ("attention_bwd", "attention_bwd.cu", 5, SHAPES[:2]),
+    "folded_bwd": ("attention_folded_bwd", "attn_mma.cuh", 4,
+                   ((8192, 81, 4, 14), (384, 81, 4, 14))),
+    "infold_bwd": ("attention_board", "attn_mma.cuh", 5, ((8192, 81, 4, 14), (384, 81, 4, 14))),
+}
 
 
-def inputs(b, l, h, dh, dev, seed=0):
-    """chip_smoke.py's attn_inputs for a packed shape: q, k, v, dO in bf16."""
+# kernel -> the (B, L, H, Dh) --numerics checks: chip_smoke.py's largest
+# and first shapes of the kernel's group.
+NUMERICS_SHAPES = {
+    "packed_bwd": SHAPES,
+    "folded_bwd": ((8192, 81, 4, 14), (383, 81, 4, 14), (64, 169, 8, 12)),
+    "infold_bwd": ((8192, 81, 4, 14), (2048, 169, 8, 12), (384, 169, 8, 12)),
+}
+
+
+def inputs(b, l, h, dh, dev, seed=0, folded=False):
+    """chip_smoke.py's attn_inputs: q, k, v, dO in bf16, packed (B, L, H*Dh)
+    or folded (B*H, Dh, L)."""
     g = torch.Generator(device=dev).manual_seed(seed + 7 * b + l)
-    return [torch.randn((b, l, h * dh), device=dev, generator=g).to(torch.bfloat16)
-            for _ in range(4)]
+    shape = (b * h, dh, l) if folded else (b, l, h * dh)
+    return [torch.randn(shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(4)]
 
 
-def f64_reference(q, k, v, do, h, dh):
+def f64_reference(q, k, v, do, h, dh, folded=False):
     """The plain version's arithmetic in f64, rounded to bf16 where it rounds."""
-    qf, kf, vf, gf = (attn._packed_to_heads(t, h, dh).double() for t in (q, k, v, do))
+    if folded:
+        qf, kf, vf, gf = (t.transpose(1, 2).double() for t in (q, k, v, do))
+    else:
+        qf, kf, vf, gf = (attn._packed_to_heads(t, h, dh).double() for t in (q, k, v, do))
     scale = 1.0 / dh**0.5
     p = torch.softmax(torch.matmul(qf, kf.transpose(1, 2)) * scale, -1)
     dp = torch.matmul(gf, vf.transpose(1, 2))
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(torch.bfloat16).double()
     grads = (torch.matmul(ds, kf), torch.matmul(ds.transpose(1, 2), qf),
              torch.matmul(p.to(torch.bfloat16).double().transpose(1, 2), gf))
+    if folded:
+        return tuple(t.to(torch.bfloat16).transpose(1, 2).contiguous() for t in grads)
     return tuple(attn._heads_to_packed(t.to(torch.bfloat16), q.shape[0], h) for t in grads)
 
 
@@ -65,49 +101,75 @@ def against(got, want) -> str:
     return f"{float(ratio.max()):.2f} (past half: {int((ratio > 0.5).sum())}, differ {differ:.2f})"
 
 
-def numerics(dev) -> None:
-    for b, l, h, dh in SHAPES:
-        q, k, v, do = inputs(b, l, h, dh, dev)
-        out = {"tensor cores": attn.attention_packed_bwd(q, k, v, do, h, dh),
-               "first version": attn.attention_packed_bwd(q, k, v, do, h, dh, kernel="fma"),
-               "plain": attn.attention_packed_bwd_reference(q, k, v, do, h, dh),
-               "f64": f64_reference(q, k, v, do, h, dh)}
-        torch.cuda.synchronize()
-        for got, want in (("tensor cores", "plain"), ("first version", "plain"),
-                          ("tensor cores", "f64"), ("first version", "f64"), ("plain", "f64")):
-            print(f"{(b, l, h, dh)} {got} vs {want}: " + "; ".join(
-                f"{name} {against(g, w)}" for name, g, w in zip(("dq", "dk", "dv"), out[got],
-                                                               out[want])), flush=True)
-        del out
-        torch.cuda.empty_cache()
+def worst_element(got, want, f64) -> str:
+    """got's element farthest from want as a share of the limit, with want's
+    and the f64 computation's value there."""
+    g, w = got.float(), want.float()
+    ratio = (g - w).abs() / (RTOL * w.abs() + ATOL_OF_MAX * float(w.abs().max()))
+    at = int(ratio.flatten().argmax())
+    return (f"{float(ratio.flatten()[at]):.2f} at {at}: got {float(g.flatten()[at]):.6f}, "
+            f"plain {float(w.flatten()[at]):.6f}, f64 {float(f64.float().flatten()[at]):.6f}")
 
 
-def start_patched_build(name: str, skip: tuple):
-    """nvcc on csrc/attention_bwd.cu with the passes in ``skip`` (1, 2)
-    compiled out; returns (the running nvcc, the library it writes)."""
-    out = cuda_build.BUILD_DIR / "study" / name
+def numerics(dev, kernels) -> None:
+    for kernel in kernels:
+        wrapper = getattr(attn, f"attention_{kernel}")
+        reference = getattr(attn, f"attention_{kernel}_reference")
+        folded = kernel == "folded_bwd"
+        for b, l, h, dh in NUMERICS_SHAPES[kernel]:
+            q, k, v, do = inputs(b, l, h, dh, dev, folded=folded)
+            extra = () if folded else (h, dh)
+            out = {"tensor cores": wrapper(q, k, v, do, *extra),
+                   "first version": wrapper(q, k, v, do, *extra, kernel="fma"),
+                   "plain": reference(q, k, v, do, *extra),
+                   "f64": f64_reference(q, k, v, do, h, dh, folded)}
+            torch.cuda.synchronize()
+            for got, want in (("tensor cores", "plain"), ("first version", "plain"),
+                              ("tensor cores", "f64"), ("first version", "f64"), ("plain", "f64")):
+                print(f"{kernel} {(b, l, h, dh)} {got} vs {want}: " + "; ".join(
+                    f"{name} {against(g, w)}" for name, g, w in zip(("dq", "dk", "dv"), out[got],
+                                                                   out[want])), flush=True)
+            for name, g, w, e in zip(("dq", "dk", "dv"), out["tensor cores"], out["plain"],
+                                     out["f64"]):
+                print(f"{kernel} {(b, l, h, dh)} tensor cores' worst {name}: "
+                      f"{worst_element(g, w, e)}", flush=True)
+            del out
+            torch.cuda.empty_cache()
+
+
+def start_patched_build(kernel: str, name: str, skip: tuple):
+    """nvcc on the kernel's source with the passes in ``skip`` (1, 2) and,
+    for K7, the transpose ("transpose") compiled out; returns (the running
+    nvcc, the library it writes)."""
+    source, loops_in = PHASE_KERNELS[kernel][:2]
+    out = cuda_build.BUILD_DIR / "study" / kernel / name
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC_DIR, out / "csrc")
-    src = out / "csrc" / "attention_bwd.cu"
-    loops = src.read_text().split(PASS_LOOP)
+    src = out / "csrc" / f"{source}.cu"
+    if "transpose" in skip:
+        text = src.read_text()
+        if text.count(K7_TRANSPOSE) != 1:
+            raise RuntimeError(f"expected one K7 transpose in {src}, found {text.count(K7_TRANSPOSE)}")
+        src.write_text(text.replace(K7_TRANSPOSE, ""))
+    patched = out / "csrc" / loops_in
+    loops = patched.read_text().split(PASS_LOOP)
     if len(loops) != 3:
-        raise RuntimeError(f"expected two pass loops in {src}, found {len(loops) - 1}")
+        raise RuntimeError(f"expected two pass loops in {patched}, found {len(loops) - 1}")
     heads = [PASS_LOOP.replace("item = warp;", "item = warp + (1 << 20);") if p in skip
              else PASS_LOOP for p in (1, 2)]
-    src.write_text(loops[0] + heads[0] + loops[1] + heads[1] + loops[2])
-    so = out / "libattention_bwd.so"
+    patched.write_text(loops[0] + heads[0] + loops[1] + heads[1] + loops[2])
+    so = out / f"lib{source}.so"
     return subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so), str(src)]), so
 
 
-def load_patched(job) -> ctypes.CDLL:
+def load_patched(kernel: str, job):
+    """The patched library's launch entry of ``kernel``."""
     proc, so = job
     if proc.wait() != 0:
         raise RuntimeError(f"nvcc failed for {so}")
     lib = ctypes.CDLL(str(so))
-    lib.attn_packed_bwd_mma_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.attn_packed_bwd_mma_launch.restype = ctypes.c_int
-    return lib
+    attn._bind_bwd_mma(lib, kernel, PHASE_KERNELS[kernel][2])
+    return getattr(lib, f"attn_{kernel}_mma_launch")
 
 
 def event_ms(fn, iters=50) -> float:
@@ -123,29 +185,51 @@ def event_ms(fn, iters=50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phases(dev) -> None:
+def phase_args(kernel: str, b: int, l: int, h: int, dh: int, dev) -> tuple:
+    """(q, k, v, dO in the kernel's layout, the ints of its launch entry)."""
+    if kernel == "folded_bwd":
+        return (inputs(b, l, h, dh, dev, seed=5, folded=True),
+                (b * h, dh, l, attn._mma_heads(kernel, l, dh, dev)))
+    per_block = (attn._mma_heads(kernel, l, dh, dev) if kernel == "packed_bwd"
+                 else attn.board_mma_plan(kernel, b, l, h, dh, dev).per_block)
+    return inputs(b, l, h, dh, dev, seed=5), (b, l, h, dh, per_block)
+
+
+def phases(dev, kernels) -> None:
     variants = {"whole": (), "second pass only": (1,), "first pass only": (2,),
                 "staging and storing only": (1, 2)}
-    jobs = {name: start_patched_build(name.replace(" ", "_"), skip)
-            for name, skip in variants.items()}
-    libs = {name: load_patched(job) for name, job in jobs.items()}
-    for b, l, h, dh in SHAPES[:2]:
-        q, k, v, do = inputs(b, l, h, dh, dev, seed=5)
-        outs = [torch.empty_like(q) for _ in range(3)]
-        heads = attn._mma_heads("packed_bwd", l, dh, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for name, lib in libs.items():
-            def launch(lib=lib):
-                code = lib.attn_packed_bwd_mma_launch(
-                    1, *(t.data_ptr() for t in (q, k, v, do, *outs)), b, l, h, dh, heads, stream)
-                cuda_build.check_launch(name, code)
-            print(f"{(b, l, h, dh)} {name}: {event_ms(launch):.4f} ms", flush=True)
+    jobs = {}
+    for kernel in kernels:
+        mine = dict(variants)
+        if kernel == "infold_bwd":
+            mine["staging, transpose and storing only"] = mine.pop("staging and storing only")
+            mine["staging and storing only"] = (1, 2, "transpose")
+        for name, skip in mine.items():
+            jobs[kernel, name] = start_patched_build(kernel, name.replace(" ", "_").replace(",", ""),
+                                                     skip)
+    entries = {key: load_patched(key[0], job) for key, job in jobs.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kernel in kernels:
+        for b, l, h, dh in PHASE_KERNELS[kernel][3]:
+            tensors, ints = phase_args(kernel, b, l, h, dh, dev)
+            outs = [torch.empty_like(tensors[0]) for _ in range(3)]
+            for (of, name), entry in entries.items():
+                if of != kernel:
+                    continue
+
+                def launch(entry=entry):
+                    code = entry(1, *(t.data_ptr() for t in (*tensors, *outs)), *ints, stream)
+                    cuda_build.check_launch(entry.__name__, code)
+                print(f"{kernel} {(b, l, h, dh)} {name}: {event_ms(launch):.4f} ms", flush=True)
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--numerics", action="store_true")
     parser.add_argument("--phases", action="store_true")
+    parser.add_argument("--kernels", nargs="+", choices=tuple(PHASE_KERNELS),
+                        default=list(PHASE_KERNELS),
+                        help="the kernels --numerics checks and --phases times")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attn_bwd_study: needs an NVIDIA card")
@@ -153,9 +237,9 @@ def main(argv=None) -> None:
     dev = torch.device("cuda:0")
     print(torch.cuda.get_device_name(0), flush=True)
     if args.numerics:
-        numerics(dev)
+        numerics(dev, args.kernels)
     if args.phases:
-        phases(dev)
+        phases(dev, args.kernels)
 
 
 if __name__ == "__main__":

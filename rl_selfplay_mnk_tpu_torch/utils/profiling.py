@@ -2,7 +2,9 @@
 
 Runs a training config (by default 9x9x5, ``resnet_b_s``, 384 envs,
 n_steps 256, batch 8192, 4 epochs; ``--arch``, ``--mnk`` and ``--batch-size``
-as in ``train.py``) for ``--warmup`` iterations, then traces one more
+as in ``train.py``; ``--route`` forces a transformer's attention to one of
+the routes ``tiny_head_attention`` lets a caller force, as chip_smoke.py's
+path C does) for ``--warmup`` iterations, then traces one more
 iteration with ``torch.profiler`` and prints: the wall time of the rollout
 and the update, the device's busy time (sum of kernel times; one stream, so
 no overlap) and idle share for each, the launches of the port's CUDA
@@ -19,6 +21,7 @@ Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json]
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_c_s --route infold
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --mnk 9 9 5 --games 16 \\
         --tournament models/tpu_smoke30/model_00030.msgpack models/tpu_smoke30/model_00025.msgpack
@@ -27,6 +30,8 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import time
 from collections import defaultdict
@@ -35,6 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..alg.schedules import entropy_coef_at
+from ..models import registry
 from ..models.fold_bn import snapshot
 from ..models.registry import eval_apply
 from ..ops.attention import (
@@ -45,6 +51,7 @@ from ..ops.attention import (
     attention_lane_slice_fwd,
     attention_packed_bwd,
     attention_packed_fwd,
+    tiny_head_attention,
 )
 from ..ops.env_step import fused_step
 from ..ops.resblock import fused_residual_block
@@ -89,11 +96,27 @@ def kernel_times(prof) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def forced_route(arch: str, route: str | None):
+    """While open, the registry builds ``arch`` with every attention forced
+    to ``route`` (None: the dispatch decides)."""
+    factory = registry.ARCHITECTURE_REGISTRY[arch]
+    if route is not None:
+        registry.ARCHITECTURE_REGISTRY[arch] = functools.partial(
+            factory, attention_fn=functools.partial(tiny_head_attention, route=route))
+    try:
+        yield
+    finally:
+        registry.ARCHITECTURE_REGISTRY[arch] = factory
+
+
 def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
-                      arch: str | None = None, mnk=None, batch_size: int | None = None) -> dict:
+                      arch: str | None = None, mnk=None, batch_size: int | None = None,
+                      route: str | None = None) -> dict:
     hw = detect_hardware_config("cuda")
     config = build_config(arch, mnk, batch_size)
-    learner, _, _, _ = create_learner(config, hw)
+    with forced_route(config["architecture_name"], route):
+        learner, _, _, _ = create_learner(config, hw)
     generator = torch.Generator(device=hw.device).manual_seed(1)
     ent = entropy_coef_at(config["entropy_coef"], config["entropy_coef_schedule"], 0,
                           config["num_envs"], config["n_steps"])
@@ -134,7 +157,8 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
         for r in kernels[phase]:
             print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
     return {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
-            "mnk": list(config["mnk"]), "batch_size": config["batch_size"], "phases": phases,
+            "route": route, "mnk": list(config["mnk"]), "batch_size": config["batch_size"],
+            "phases": phases,
             "port_kernel_launches": launches, "top_kernels": kernels}
 
 
@@ -192,6 +216,8 @@ def main(argv=None) -> None:
     parser.add_argument("--arch", default=None, help="architecture registry name")
     parser.add_argument("--mnk", type=int, nargs=3, default=None, metavar=("M", "N", "K"))
     parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--route", choices=("folded", "infold"), default=None,
+                        help="force every attention of a transformer to this route")
     parser.add_argument("--tournament", nargs=2, default=None, metavar=("A", "B"),
                         help="trace one half-pairing between these two exports instead")
     parser.add_argument("--games", type=int, default=16, help="boards of the half-pairing")
@@ -201,7 +227,7 @@ def main(argv=None) -> None:
                                               args.trace)))
         return
     print(json.dumps(profile_iteration(args.warmup, args.trace, arch=args.arch, mnk=args.mnk,
-                                       batch_size=args.batch_size)))
+                                       batch_size=args.batch_size, route=args.route)))
 
 
 if __name__ == "__main__":

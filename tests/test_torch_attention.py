@@ -4,10 +4,10 @@ same numpy arrays: the folded and the packed pair, forward and backward,
 ``tiny_head_attention`` with its autograd gradient through both branches of
 the dispatch, then the one-block-per-board kernels' plain versions (lane
 slice, in-kernel fold), the kernel each forward takes by dtype and the
-block-unit rule of the tensor-core board forwards, ``attention_infold``
-against ``jax.grad`` and the dispatch's choice of route. Float32 on the
-CPU, and bf16 to pin where p and ds are rounded, in the folded pair and in
-the packed pair."""
+block-unit rule of the tensor-core board kernels, the kernel each backward
+takes by dtype, ``attention_infold`` against ``jax.grad`` and the
+dispatch's choice of route. Float32 on the CPU, and bf16 to pin where p and
+ds are rounded, in the folded, the packed and the in-kernel-fold pair."""
 
 from types import SimpleNamespace
 
@@ -295,6 +295,43 @@ def test_infold_pair_matches_pallas_interpret(b, l, h, dh):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
+@pytest.mark.parametrize("b,l,h,dh", BOARD_SHAPES)
+def test_infold_pair_bf16_rounding_points_match_pallas_interpret(b, l, h, dh):
+    """The in-kernel-fold pair with bf16 inputs: p rounded to bf16 before P.V
+    and dv, row = rowsum(dp * p) over the f32 p, ds rounded to bf16 before dq
+    and dk, the outputs to bf16, as ``_infold_fwd_kernel`` and
+    ``_infold_bwd_kernel`` do. Held against them in interpret mode within two
+    bf16 ulps of the result's size, as the packed pair above; the
+    tensor-core K6 and K7 are held against these plain versions on the
+    card."""
+    xs = arrays(24, (b, l, h * dh), 4)
+    ts = to_torch(xs, torch.bfloat16)
+    js = [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+    tol = dict(rtol=2.0**-7, atol=2.0**-7)
+    want = jattn._attention_infold_fwd_pallas(*js[:3], h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_infold_reference(*ts[:3], h, dh)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
+    want = jattn._attention_infold_bwd_pallas(*js, h=h, dh=dh, tile_batch=2, interpret=True)
+    got = tattn.attention_infold_bwd_reference(*ts, h, dh)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)), **tol)
+    # The rounding points themselves: with ds left in f32, dq and dk are
+    # other ones; with p left in f32, dv is another one.
+    q, k, v, do = (tattn._packed_to_heads(t, h, dh).float() for t in ts)
+    p = tattn._probabilities_reference(q, k)
+    dp = torch.matmul(do, v.transpose(1, 2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) / dh**0.5
+
+    def packed(t):
+        return tattn._heads_to_packed(t.to(torch.bfloat16), b, h)
+
+    assert not torch.equal(packed(torch.matmul(ds, k)), got[0])
+    assert not torch.equal(packed(torch.matmul(ds.transpose(1, 2), q)), got[1])
+    assert not torch.equal(packed(torch.matmul(p.transpose(1, 2), do)), got[2])
+
+
 @pytest.mark.parametrize("name", ["lane_slice_fwd", "infold_fwd"])
 @pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
 def test_board_forward_kernel_follows_the_dtype(name, dtype, kernel):
@@ -325,9 +362,53 @@ def test_board_forward_rejects_an_unknown_kernel(name):
         getattr(tattn, f"attention_{name}_fwd")(*xs, 2, 8, kernel="wgmma")
 
 
+@pytest.mark.parametrize("name", ["folded_bwd", "infold_bwd"])
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_backward_kernel_follows_the_dtype(name, dtype, kernel):
+    """K4 and K7 take the tensor-core kernel for bf16 and the FMA kernel
+    (their first version) for f32, whose products on the tensor cores would
+    round to TF32."""
+    kernel_for = getattr(tattn, f"{name}_kernel_for")
+    assert kernel_for(dtype) == kernel
+    with pytest.raises(ValueError, match=f"attention_{name}: unsupported dtype"):
+        kernel_for(torch.float16)
+
+
+def backward_call(name, seed, h=4, dh=14):
+    """The wrapper of K4 or K7 and its plain version, with bf16 inputs in
+    its layout, as a function of ``kernel``."""
+    if name == "folded_bwd":
+        xs = to_torch(arrays(seed, (2 * h, dh, 9), 4), torch.bfloat16)
+        return (lambda **kw: tattn.attention_folded_bwd(*xs, **kw),
+                lambda: tattn.attention_folded_bwd_reference(*xs))
+    xs = to_torch(arrays(seed, (2, 9, h * dh), 4), torch.bfloat16)
+    return (lambda **kw: tattn.attention_infold_bwd(*xs, h, dh, **kw),
+            lambda: tattn.attention_infold_bwd_reference(*xs, h, dh))
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "fma"])
+@pytest.mark.parametrize("name", ["folded_bwd", "infold_bwd"])
+def test_backward_on_cpu_tensors_is_the_plain_version_for_any_kernel(name, kernel):
+    wrapper = getattr(tattn, f"attention_{name}")
+    call, plain = backward_call(name, 25)
+    before = wrapper.launches
+    got = call(kernel=kernel)
+    assert wrapper.launches == before
+    for g, w in zip(got, plain()):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["folded_bwd", "infold_bwd"])
+def test_backward_rejects_an_unknown_kernel(name):
+    call, _ = backward_call(name, 26, h=2, dh=8)
+    with pytest.raises(ValueError, match="unknown kernel 'wgmma'"):
+        call(kernel="wgmma")
+
+
 class FakeBoardLib:
     """The shared-memory sizes and limits of csrc/attention_board.cu, as a
-    card-free stand-in: a K6 block of n heads takes 20,000 n bytes."""
+    card-free stand-in: a K6 block of n heads takes 20,000 n bytes, a K7
+    block 28,000 n."""
 
     def board_attn_max_tokens(self):
         return 192
@@ -337,6 +418,9 @@ class FakeBoardLib:
 
     def attn_infold_fwd_mma_smem_bytes(self, l, dh, heads):
         return 20_000 * heads
+
+    def attn_infold_bwd_mma_smem_bytes(self, l, dh, heads):
+        return 28_000 * heads
 
 
 @pytest.mark.parametrize("kernel,b,per_block,blocks_per_board", [
@@ -367,6 +451,27 @@ def test_board_mma_plan_splits_a_board_while_all_blocks_stay_resident(
     assert plan.unit == ("query tiles" if kernel == "lane_slice_fwd" else "heads")
 
 
+@pytest.mark.parametrize("b,per_block,blocks_per_board", [
+    (8192, 2, 2),  # more boards than fit at once: at most two heads fit the budget
+    (256, 2, 2),   # 512 of 528 resident with two heads a block
+    (100, 1, 4),   # 400 of 528 with one head
+    (16, 1, 4),    # a tournament half-pairing: every head its own block
+])
+def test_board_mma_plan_splits_the_backward_by_heads(monkeypatch, b, per_block, blocks_per_board):
+    """K7 (``"infold_bwd"``) at 9x9 with four heads of 14 on a card of 132
+    SMs: the backward needs all of a head's queries, so its unit is heads, as
+    K6's; the same rule, within the shared-memory budget of K6."""
+    blocks_an_sm = {1: 4, 2: 4}
+    monkeypatch.setattr(tattn, "_board_lib", FakeBoardLib)
+    monkeypatch.setattr(tattn, "_board_mma_resources", lambda kernel, l, h, dh, n, device: (
+        168, 0, 28_000 * n, blocks_an_sm[n]))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: SimpleNamespace(
+        multi_processor_count=132, shared_memory_per_block_optin=232_448))
+    plan = tattn.board_mma_plan.__wrapped__("infold_bwd", b, 81, 4, 14, "cuda")
+    assert (plan.unit, plan.per_block, plan.blocks_per_board, plan.blocks) == (
+        "heads", per_block, blocks_per_board, b * blocks_per_board)
+
+
 def test_board_mma_plan_raises_where_a_block_cannot_fit(monkeypatch):
     monkeypatch.setattr(tattn, "_board_lib", FakeBoardLib)
     monkeypatch.setattr(tattn, "_board_mma_resources",
@@ -377,6 +482,10 @@ def test_board_mma_plan_raises_where_a_block_cannot_fit(monkeypatch):
         tattn.board_mma_plan.__wrapped__("lane_slice_fwd", 16, 169, 8, 64, "cuda")
     with pytest.raises(KernelError, match="beyond the kernel's"):
         tattn.board_mma_plan.__wrapped__("infold_fwd", 16, 200, 4, 14, "cuda")
+    with pytest.raises(KernelError, match="240000 bytes of shared memory"):
+        tattn.board_mma_plan.__wrapped__("infold_bwd", 16, 169, 8, 64, "cuda")
+    with pytest.raises(KernelError, match="beyond the kernel's"):
+        tattn.board_mma_plan.__wrapped__("infold_bwd", 16, 81, 4, 96, "cuda")
 
 
 def test_board_plain_versions_are_the_packed_function():

@@ -237,6 +237,40 @@ def test_folded_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry
     assert spy.launched == [entry]
 
 
+# The tensor-core folded backward (K4 in bf16), at the folded forward's
+# cases: every token count of the registry's boards up to the kernel's limit,
+# every head width it takes, a count of heads that leaves the last block of
+# four short.
+@pytest.mark.parametrize("l", [9, 81, 169, 192])
+@pytest.mark.parametrize("dh", [8, 12, 14, 32, 64])
+def test_folded_backward_tensor_cores_within_tolerance(device, l, dh):
+    bh = 4 * 5 + 3
+    q, k, v, do = attn_inputs(device, torch.bfloat16, bh, l, 1, dh, packed=False)
+    before = attn.attention_folded_bwd.launches
+    got = attn.attention_folded_bwd(q, k, v, do)
+    again = attn.attention_folded_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert attn.attention_folded_bwd.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), \
+        "the tensor-core backward is not deterministic"
+    want = attn.attention_folded_bwd_reference(q, k, v, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert_attn_close(g, w, torch.bfloat16, name)
+    for name, g, w in zip(("dq", "dk", "dv"), attn.attention_folded_bwd(q, k, v, do, kernel="fma"),
+                          want):
+        assert_attn_close(g, w, torch.bfloat16, f"fma {name}")
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "attn_folded_bwd_mma_launch"),
+                                         (torch.float32, "attn_folded_bwd_launch")])
+def test_folded_backward_dtype_picks_its_kernel(device, monkeypatch, dtype, entry):
+    spies = EntrySpy(attn._lib()), EntrySpy(attn._folded_bwd_lib())
+    monkeypatch.setattr(attn, "_lib", lambda: spies[0])
+    monkeypatch.setattr(attn, "_folded_bwd_lib", lambda: spies[1])
+    attn.attention_folded_bwd(*attn_inputs(device, dtype, 8, 81, 4, 14, packed=False))
+    assert spies[0].launched + spies[1].launched == [entry]
+
+
 # The tensor-core packed forward (K8 in bf16): every token count of the
 # registry's boards up to the kernel's limit, the registry's head widths of
 # 64 and 32, and those of 12 and 14, whose rows are not whole 16-byte words;
@@ -373,6 +407,37 @@ def test_board_forward_dtype_picks_its_kernel(device, monkeypatch, dtype, suffix
     assert spy.launched == [f"attn_{kernel}{suffix}"]
 
 
+# The tensor-core in-kernel-fold backward (K7 in bf16), at the board
+# forwards' cases: every token count up to the kernel's limit, four heads of
+# 14, eight of 12 and two of 64; 5 and 16 boards, where a board's heads
+# split over several blocks.
+@pytest.mark.parametrize("b", [5, 16])
+@pytest.mark.parametrize("l,h,dh", BOARD_MMA_SHAPES)
+def test_infold_backward_tensor_cores_within_tolerance(device, b, l, h, dh):
+    q, k, v, do = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True)
+    before = attn.attention_infold_bwd.launches
+    got = attn.attention_infold_bwd(q, k, v, do, h, dh)
+    again = attn.attention_infold_bwd(q, k, v, do, h, dh)
+    torch.cuda.synchronize()
+    assert attn.attention_infold_bwd.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), \
+        "the tensor-core backward is not deterministic"
+    want = attn.attention_infold_bwd_reference(q, k, v, do, h, dh)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert_attn_close(g, w, torch.bfloat16, name)
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          attn.attention_infold_bwd(q, k, v, do, h, dh, kernel="fma"), want):
+        assert_attn_close(g, w, torch.bfloat16, f"fma {name}")
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_mma_launch"), (torch.float32, "_launch")])
+def test_infold_backward_dtype_picks_its_kernel(device, monkeypatch, dtype, suffix):
+    spy = EntrySpy(attn._board_lib())
+    monkeypatch.setattr(attn, "_board_lib", lambda: spy)
+    attn.attention_infold_bwd(*attn_inputs(device, dtype, 8, 81, 4, 14, packed=True), 4, 14)
+    assert spy.launched == [f"attn_infold_bwd{suffix}"]
+
+
 def test_infold_walks_the_heads_in_groups_where_the_board_does_not_fit(device):
     """f32 at 13x13, d96: five slabs of the whole board exceed a block's
     shared memory, so the backward takes the heads in groups; same result."""
@@ -402,6 +467,35 @@ def test_forced_routes_agree_with_plain_autograd(device, route, counters):
     (torch.einsum("bhij,bjhd->bihd", torch.softmax(s, -1), plain[2]) * w).sum().backward()
     for got, want in zip(leaves, plain):
         assert_attn_close(got.grad, want.grad, torch.float32, "grad")
+
+
+@pytest.mark.parametrize("route,kernels", [
+    ("folded", ("attention_folded_fwd", "attention_folded_bwd")),
+    ("infold", ("attention_infold_fwd", "attention_infold_bwd")),
+])
+def test_forced_routes_in_bf16_run_the_tensor_core_pair(device, monkeypatch, route, kernels):
+    """bf16 through the two routes a caller can force: the forward and the
+    backward each launch their tensor-core kernel once, and the gradients
+    are the plain version's backward of the same function."""
+    b, l, h, dh = 3, 25, 4, 14
+    spies = {name: EntrySpy(getattr(attn, name)()) for name in ("_lib", "_folded_bwd_lib",
+                                                                 "_board_lib")}
+    for name, spy in spies.items():
+        monkeypatch.setattr(attn, name, lambda spy=spy: spy)
+    g = torch.Generator(device=device).manual_seed(2)
+    q, k, v, w = (torch.randn((b, l, h, dh), device=device, generator=g).to(torch.bfloat16)
+                  for _ in range(4))
+    before = [getattr(attn, name).launches for name in kernels]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attn.tiny_head_attention(*leaves, route=route).backward(w)
+    assert [getattr(attn, name).launches for name in kernels] == [n + 1 for n in before]
+    launched = sorted(e for spy in spies.values() for e in spy.launched)
+    assert launched == sorted(f"attn_{name.removeprefix('attention_')}_mma_launch"
+                              for name in kernels)
+    packed = [t.reshape(b, l, h * dh) for t in (q, k, v, w)]
+    want = attn.attention_packed_bwd_reference(*packed, h, dh)
+    for name, leaf, wg in zip(("dq", "dk", "dv"), leaves, want):
+        assert_attn_close(leaf.grad.reshape(b, l, h * dh), wg, torch.bfloat16, name)
 
 
 def test_no_gradient_forward_takes_the_lane_slice_kernel(device):

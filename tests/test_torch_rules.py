@@ -305,21 +305,27 @@ def code_of(path):
 
 
 @pytest.mark.parametrize("name", ["resblock.cu", "attention.cu", "attention_bwd.cu",
-                                  "attention_board.cu", "mma_common.cuh", "attn_mma.cuh"])
+                                  "attention_board.cu", "mma_common.cuh", "attn_mma.cuh",
+                                  "attention_folded_bwd.cu"])
 def test_tensor_core_sources_call_no_library_kernel(name):
-    """The bf16 K2, K3, K5, K6, K8 and K9 compute inside their own bodies: no header
+    """The bf16 K2-K9 compute inside their own bodies: no header
     beyond CUDA's runtime ones and the port's, no library GEMM, convolution
-    or attention, and the products are the port's own ``mma.sync`` wrapper."""
+    or attention, and the products are the port's own ``mma.sync`` wrapper:
+    in the kernel's source, or, for K4, in the [channel][token] backward core
+    of ``attn_mma.cuh`` that it calls (and that K7 shares), which holds them."""
     code = code_of(CSRC / name)
     includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', code))
     assert includes <= KERNEL_INCLUDES, f"{name} includes {sorted(includes - KERNEL_INCLUDES)}"
     lowered = code.lower()
     for library in LIBRARY_KERNEL_NAMES:
         assert library not in lowered, f"{name} names {library!r}"
+    own_products = code.count("mma_bf16_16816(") >= 2 and "ldmatrix_x4" in code
     if name.endswith(".cu"):
         assert '#include "mma_common.cuh"' in code
-        assert code.count("mma_bf16_16816(") >= 2 and "ldmatrix_x4" in code
+        shared_core = '#include "attn_mma.cuh"' in code and "fold_bwd_passes<kKT, kDK>(" in code
+        assert own_products or shared_core
     elif name == "mma_common.cuh":
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
     else:
         assert '#include "mma_common.cuh"' in code
+        assert own_products
