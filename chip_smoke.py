@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``); build the CUDA
    kernels from ``rl_selfplay_mnk_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the build time;
-2. env-step kernel (K1) against its plain version over random legal
-   playouts with random ``active`` masks: 3x3x3, 5x5x4, 9x9x5 and 13x13x5
-   at E = 8192, 8191, 384 (rollout), 256 (validation), 16 (a tournament
-   half-pairing) and 1 (a game of ``play``), 60 steps each; all six outputs
-   bitwise equal;
+2. env-step kernel (K1) against its plain version over random playouts
+   with random ``active`` masks: 3x3x3, 5x5x4, 9x9x5 and 13x13x5 at E =
+   8192, 8191, 384 (rollout), 256 (validation), 16 (a tournament
+   half-pairing) and 1 (a game of ``play``), 60 steps each, legal moves but
+   for a quarter of the envs every third step playing an occupied cell and
+   every third another playing an action out of range, half of the finished
+   games played on past their end; all six outputs bitwise equal;
 3. residual-block kernel (K2) against its plain version (f32 products, TF32
    off) at B in {256, 384, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 (the
    tensor-core kernel, run twice: the same bits) and f32 (the FMA kernel),
@@ -64,7 +66,10 @@ Phases, in order; any failure exits non-zero:
    plain version and a library yardstick that the port never calls (two
    ``F.conv2d`` for K2, ``F.scaled_dot_product_attention`` for the attention
    kernels: its forward, and forward plus backward beside the backward
-   kernels); K2 at B = 384, 16 and 1, each attention kernel at its update
+   kernels); K1 at ``utils/env_step_study.py``'s shapes (9x9x5 at 384 and
+   8192 envs, 13x13x5 at 384, 9x9x5 at 16; 500 launches) with its
+   registers, spill bytes and blocks an SM; K2 at B = 384, 16 and 1, each
+   attention kernel at its update
    minibatch and at the rollout batch of 384, K5-K7 also at a tournament
    half-pairing of 16; K2 and the seven attention kernels in bf16 also
    through their first version, the FMA kernel (``first_version_ms``); the
@@ -92,6 +97,10 @@ K1_SHAPES = ((3, 3, 3), (5, 5, 4), (9, 9, 5), (13, 13, 5))
 # and the single game of play.py
 K1_ENVS = (8192, 8191, 384, 256, 16, 1)
 K1_STEPS = 60
+# K1's checks: every third step a quarter of the envs play a cell that holds
+# a stone, and on every third other step a quarter play one of these actions,
+# all off the board, in place of a legal move.
+K1_WILD_ACTIONS = (-1, -7, 81, 169, 1000, 2**31 - 1, -(2**40))
 # Validation and rollout batches, an odd one, a tournament half-pairing, one game.
 K2_CASES = [(b, c) for b in (256, 384, 8191, 16, 1) for c in (32, 64)]
 # K2 is timed at the rollout batch, a tournament half-pairing and one game of play.
@@ -106,12 +115,15 @@ K2_TOL = {
 # an odd batch, 13x13 tokens and a 3x3 board for the folded pair; for the
 # packed pair also Dh = 32, four heads of 64 (the largest head of the
 # registry), a head width that is not 16-byte aligned, a tournament
-# half-pairing of 16 on 13x13, and 13x13 with eight heads of 12.
+# half-pairing of 16 on 13x13, 13x13 with eight heads of 12, and the two
+# update minibatches with heads below 16 channels (9x9 with four of 14,
+# 13x13 with eight of 12).
 ATTN_FOLDED_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (256, 81, 4, 14),
                       (383, 81, 4, 14), (64, 169, 8, 12), (8, 9, 4, 14))
 ATTN_PACKED_SHAPES = ((4096, 169, 2, 64), (384, 169, 2, 64), (256, 169, 2, 64),
                       (384, 81, 3, 32), (383, 169, 2, 64), (64, 169, 4, 64), (4, 81, 4, 14),
-                      (16, 169, 2, 64), (384, 169, 8, 12), (16, 169, 8, 12))
+                      (16, 169, 2, 64), (384, 169, 8, 12), (16, 169, 8, 12),
+                      (8192, 81, 4, 14), (2048, 169, 8, 12))
 # The one-block-per-board kernels (K5-K7): the update minibatch, the rollout
 # and validation batches, a tournament half-pairing of 16, an odd batch, four
 # 13x13 batches of eight heads and a 3x3 board.
@@ -237,10 +249,12 @@ def device_ms(fn, iters: int = 50, match: str = ""):
 
 
 def timed(fn, match: str = "", iters: int = 100, warmup: int = 10):
-    """(device ms per call, or the event time when the profiler has none;
-    event ms per call)."""
+    """(device ms per call, or the event time when the profiler has none
+    twice running; event ms per call)."""
     call = time_ms(fn, iters=iters, warmup=warmup)
     dev = device_ms(fn, iters=min(iters, 50), match=match)
+    if dev is None:  # the profiler now and then reports no events at all
+        dev = device_ms(fn, iters=min(iters, 50), match=match)
     if dev is None:
         print("profiler reported no device time; using CUDA-event time")
     return (dev if dev is not None else call), call
@@ -272,7 +286,14 @@ def phase_k1(torch, np, dev):
             state = make_env_state(cfg, e, dev)
             mask = np.ones((e, m * n), bool)
             for t in range(K1_STEPS):
-                actions = torch.as_tensor(random_legal_actions(rng, mask), device=dev)
+                actions = random_legal_actions(rng, mask)
+                pick = rng.random(e) < 0.25
+                if t % 3 == 1:  # a stone on a cell that holds one
+                    occupied = np.where(~mask, rng.random(mask.shape), -1.0)
+                    actions = np.where(pick & (~mask).any(1), occupied.argmax(1), actions)
+                elif t % 3 == 2:
+                    actions = np.where(pick, rng.choice(K1_WILD_ACTIONS, e), actions)
+                actions = torch.as_tensor(actions, device=dev)
                 active = torch.as_tensor(rng.random(e) < 0.8, device=dev)
                 got = fused_step(cfg, state, actions, active)
                 want = fused_step_reference(cfg, state, actions, active)
@@ -293,7 +314,8 @@ def phase_k1(torch, np, dev):
                 again = got[2] & torch.as_tensor(rng.random(e) < 0.5, device=dev)
                 state = reset_where(got[0], again)
                 mask = (state.boards.sum(1).reshape(e, -1) == 0).cpu().numpy()
-            print(f"K1 {m}x{n}x{k} E={e}: {K1_STEPS} steps, all six outputs bitwise equal")
+            print(f"K1 {m}x{n}x{k} E={e}: {K1_STEPS} steps (occupied cells, actions out of range, "
+                  "play past the end), all six outputs bitwise equal")
     return max_err
 
 
@@ -875,30 +897,23 @@ def time_resblock(torch, F, dev, b, c=32):
             "library_call_ms": lib_call}
 
 
-def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
+def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors):
     import torch.nn.functional as F
 
-    from rl_selfplay_mnk_tpu_torch.env import EnvConfig, make_env_state
     from rl_selfplay_mnk_tpu_torch.env.lines import num_lines
-    from rl_selfplay_mnk_tpu_torch.ops.env_step import fused_step, fused_step_reference
+    from rl_selfplay_mnk_tpu_torch.ops.env_step import kernel_resources
+    from rl_selfplay_mnk_tpu_torch.utils.env_step_study import TIMED, time_k1
 
-    # K1 at the main path's shape: 384 envs mid-game on 9x9x5.
-    rng = np.random.default_rng(2)
-    cfg, e, mn = EnvConfig(9, 9, 5), 384, 81
-    state = make_env_state(cfg, e, dev)
-    for _ in range(20):
-        mask = (state.boards.sum(1).reshape(e, -1) == 0).cpu().numpy()
-        state, _, _, _ = fused_step(cfg, state, torch.as_tensor(random_legal_actions(rng, mask), device=dev))
-    mask = (state.boards.sum(1).reshape(e, -1) == 0).cpu().numpy()
-    actions = torch.as_tensor(random_legal_actions(rng, mask), device=dev)
-    active = torch.as_tensor(rng.random(e) < 0.5, device=dev)
-    k1_ms, k1_call = timed(lambda: fused_step(cfg, state, actions, active), "env_step_kernel", 500)
-    k1_plain, k1_plain_call = timed(lambda: fused_step_reference(cfg, state, actions, active))
-    lines = num_lines(9, 9, 5)
-    k1_bytes = (e * 2 * mn * 4 + e * (4 + 4 + 8 + 1) + lines * 5 * 4  # read
-                + e * 2 * mn * 4 + e * (4 + 4 + 4 + 1) + e * mn)  # write
-    k1_ops = e * (2 * mn + lines * 5 + 8)  # placement, line sums, flags
-    k1_bound, k1_by = bound(k1_bytes, k1_ops, "float32")
+    # K1 on mid-game boards at the main path's 384 envs, bench.py's 8192,
+    # 13x13 and a tournament half-pairing; bound by the bytes it must move.
+    k1 = {}
+    for mnk, e in TIMED:
+        r = time_k1(mnk, e, dev)
+        ops = e * (2 * mnk[0] * mnk[1] + num_lines(*mnk) * mnk[2] + 8)  # placement, line sums, flags
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), ops, "float32")
+        r["library_ms"] = None
+        k1[mnk, e] = r
+    k1_main = k1[(9, 9, 5), 384]
 
     k2 = {b: time_resblock(torch, F, dev, b) for b in K2_TIMED_BATCHES}
     kernels = [
@@ -910,14 +925,14 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
             "launches": launches["env_step"][0],
             "launches_on": launches["env_step"][1],
             "max_abs_err": k1_error,
-            "ms": k1_ms,
-            "plain_ms": k1_plain,
-            "bound_ms": k1_bound,
-            "bound_by": k1_by,
-            "library_ms": None,
-            "call_ms": k1_call,
-            "plain_call_ms": k1_plain_call,
+            **{key: k1_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "call_ms", "plain_call_ms")},
             "library_call_ms": None,
+            "shape": k1_main["shape"],
+            "at_bench_batch": k1[(9, 9, 5), 8192],
+            "at_13x13": k1[(13, 13, 5), 384],
+            "at_tournament_batch": k1[(9, 9, 5), 16],
+            "resources": kernel_resources(),
         },
         {
             "name": "resblock",
@@ -941,13 +956,17 @@ def phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors):
               f"plain device {k['plain_ms']:.5f} ms, per call {k['plain_call_ms']:.5f} ms; "
               f"library {k['library_ms']} / {k['library_call_ms']} ms; "
               f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}")
-        for key in ("at_rollout_batch", "at_tournament_batch", "at_play_batch"):
+        if "resources" in k:
+            print(f"  registers, spill bytes, blocks an SM: {k['resources']}")
+        for key in ("at_bench_batch", "at_13x13", "at_rollout_batch", "at_tournament_batch",
+                    "at_play_batch"):
             r = k.get(key)
             if r:
                 first = f" (first version {r['first_version_ms']:.5f})" if "first_version_ms" in r else ""
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
                 print(f"  at {tuple(r['shape'])}: device {r['ms']:.5f} ms{first}, per call "
                       f"{r['call_ms']:.5f} ms; plain device {r['plain_ms']:.5f} ms; library "
-                      f"{r['library_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+                      f"{lib}; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
     return kernels
 
 
@@ -1063,7 +1082,7 @@ def main() -> int:
         else:
             raise AssertionError(f"kernel {name} was launched on none of the paths")
     threshold = phase_threshold(torch, dev)
-    kernels = phase_timings(torch, np, dev, launches, k1_error, k2_errors, attn_errors)
+    kernels = phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors)
 
     print(json.dumps({"threshold": threshold}))
     print(json.dumps({"kernels": kernels}))

@@ -320,9 +320,10 @@ __device__ __forceinline__ void move_span(bf16* __restrict__ dev, bf16* smem, in
 // product, whose sum the tensor cores truncate, they put K7's dv at the 9x9
 // update's minibatch at 1.01 of chip_smoke.py's bf16 limit on an H100
 // (utils/attn_bwd_study.py --numerics gives the share as built). Pass 1's S
-// and dP (the row statistics, dq's ds) stay one product a 16-deep step, as
-// K9's: paired too, they cost as much time again as pass 2's pairs and did
-// not move dq's worst share past the spread of its inputs.
+// and dP (the row statistics, dq's ds) stay one product a 16-deep step:
+// paired too, they cost as much time again as pass 2's pairs and did not
+// move dq's worst share past the spread of its inputs. (K9 pairs pass 1's S
+// where Dh <= 16: attention_bwd.cu says why.)
 
 // A b16x2 fragment register with its depth (channel) pair starting at c:
 // the halves at or past dh zeroed.

@@ -4,7 +4,8 @@ A numpy copy of the JAX package's ``env/lines.py``: the same enumeration
 order (per cell: horizontal, vertical, main diagonal, anti-diagonal), so
 ``line_matrix`` is the same (M*N, n_lines) incidence matrix. The plain env
 step counts a board's stones per line as ``plane @ line_matrix``; the CUDA
-env-step kernel walks ``line_cells`` instead.
+env-step kernel finds the same lines by arithmetic (runs of k along the four
+directions of ``line_cells``) and reads no table.
 """
 
 from __future__ import annotations

@@ -5,9 +5,12 @@ Replaces the TPU kernel ``rl_selfplay_mnk_tpu/ops/pallas_env.py``
 ``active``, move count, the K-in-a-row win check, draw/done/reward, the
 player toggle and the next action mask.
 
-On the H100 the call is bound by bytes, and at the main path's sizes by the
-launch itself: 384 envs at 9x9 move about 0.3 MB. The kernel
-(``csrc/env_step.cu``) is one launch, one warp per env, any env count.
+On the H100 the call is bound by bytes (11.5 MB at bench.py's 8192 envs on
+9x9), and at the main path's 384 envs by one memory round trip and the
+launch. The kernel (``csrc/env_step.cu``) is one launch, a warp per env, any
+env count: the mover's stones become ballot words and every run of k is a
+shift-and-AND in registers, with an exact float count in the kernel for an
+env whose planes hold values other than 0 and 1. It reads no line table.
 
 ``fused_step`` launches the kernel for CUDA tensors and runs
 ``fused_step_reference`` for CPU tensors; there is no other route. Both
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ..env.lines import line_cells, line_matrix
+from ..env.lines import line_matrix
 from ..env.mnk_env import EnvConfig, EnvState
 from .cuda_build import check_launch, load_library
 
@@ -67,18 +70,24 @@ def fused_step_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _line_table(m: int, n: int, k: int, device: torch.device) -> torch.Tensor:
-    """(L, k) int32 cell indices of every line, resident on ``device``."""
-    return torch.tensor(line_cells(m, n, k), dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("env_step")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.env_step_launch.argtypes = [p] * 6 + [i] * 4 + [p] * 7
+    lib.env_step_launch.argtypes = [p] * 5 + [i] * 4 + [p] * 7
     lib.env_step_launch.restype = ctypes.c_int
+    lib.env_step_resources.argtypes = [ctypes.POINTER(i)] * 3
+    lib.env_step_resources.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources() -> dict:
+    """The kernel's registers and spilled bytes a thread, and the blocks of
+    four envs an SM holds at once (``cudaFuncGetAttributes``)."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    check_launch("env_step_resources",
+                 _lib().env_step_resources(ctypes.byref(regs), ctypes.byref(local),
+                                           ctypes.byref(blocks)))
+    return {"registers": regs.value, "local_bytes": local.value, "blocks_per_sm": blocks.value}
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -120,7 +129,6 @@ def fused_step(
     for t in (state.current_player, state.move_count, actions, active):
         if t.device != device:
             raise ValueError("fused_step: all inputs must be on one device")
-    lines = _line_table(cfg.m, cfg.n, cfg.k, device)
 
     boards = torch.empty_like(state.boards)
     player = torch.empty_like(state.current_player)
@@ -131,7 +139,7 @@ def fused_step(
     code = _lib().env_step_launch(
         state.boards.data_ptr(), state.current_player.data_ptr(),
         state.move_count.data_ptr(), actions.data_ptr(), active.data_ptr(),
-        lines.data_ptr(), e, mn, lines.shape[0], cfg.k,
+        e, cfg.m, cfg.n, cfg.k,
         boards.data_ptr(), player.data_ptr(), move_count.data_ptr(),
         rewards.data_ptr(), dones.data_ptr(), mask.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,

@@ -3,6 +3,7 @@
 Usage (from the repository root, one card)::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --numerics
+    python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --numerics --seeds 0 1 2 --kernels packed_bwd
     python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --phases
     python -m rl_selfplay_mnk_tpu_torch.utils.attn_bwd_study --phases --kernels folded_bwd infold_bwd
 
@@ -15,10 +16,15 @@ before dq and dk, the outputs). Each line gives, for dq, dk and dv, the
 worst error as a share of chip_smoke.py's bf16 limit, the elements past half
 of it, and the share of differing elements over the share allowed; then the
 tensor-core kernel's worst element against the plain version, with the
-plain and the f64 value there.
+plain and the f64 value there. ``--seeds`` draws the inputs from each seed
+given (0, chip_smoke.py's, by default; a seed moves the generator's seed as
+``inputs`` says) and ends with one line a shape: the tensor-core kernel's
+worst share of the limit over those seeds for dq, dk and dv, against the
+plain version and against the f64 computation.
 
 ``--phases``: each kernel's time at its update minibatch and at 384 boards
-(K9 at (B, 169, 2, 64), K4 and K7 at (B, 81, 4, 14)), whole and with its
+(K9 at (B, 169, 2, 64) and at the two minibatches with heads below 16
+channels, K4 and K7 at (B, 81, 4, 14)), whole and with its
 first pass, its second pass or both compiled out (patched copies of
 ``csrc/`` built under ``_build/study/``): staging and storing alone, and
 what each pass adds. For K7 also with its on-chip transpose compiled out,
@@ -52,7 +58,8 @@ K7_TRANSPOSE = ("for (int t = 0; t < 4; ++t) transpose_slab<kTokens>(rows + t * 
 # and K7 share their passes (attn_mma.cuh, fold_bwd_passes): a patched copy
 # of csrc/ builds one source, so it changes one kernel.
 PHASE_KERNELS = {
-    "packed_bwd": ("attention_bwd", "attention_bwd.cu", 5, SHAPES[:2]),
+    "packed_bwd": ("attention_bwd", "attention_bwd.cu", 5,
+                   SHAPES[:2] + ((8192, 81, 4, 14), (2048, 169, 8, 12))),
     "folded_bwd": ("attention_folded_bwd", "attn_mma.cuh", 4,
                    ((8192, 81, 4, 14), (384, 81, 4, 14))),
     "infold_bwd": ("attention_board", "attn_mma.cuh", 5, ((8192, 81, 4, 14), (384, 81, 4, 14))),
@@ -60,9 +67,11 @@ PHASE_KERNELS = {
 
 
 # kernel -> the (B, L, H, Dh) --numerics checks: chip_smoke.py's largest
-# and first shapes of the kernel's group.
+# and first shapes of the kernel's group; for K9 also the two update
+# minibatches with heads below 16 channels (9x9 with four heads of 14, 13x13
+# with eight of 12), where K9 sums S, S^T and dP^T a depth pair at a time.
 NUMERICS_SHAPES = {
-    "packed_bwd": SHAPES,
+    "packed_bwd": SHAPES + ((8192, 81, 4, 14), (2048, 169, 8, 12)),
     "folded_bwd": ((8192, 81, 4, 14), (383, 81, 4, 14), (64, 169, 8, 12)),
     "infold_bwd": ((8192, 81, 4, 14), (2048, 169, 8, 12), (384, 169, 8, 12)),
 }
@@ -93,12 +102,19 @@ def f64_reference(q, k, v, do, h, dh, folded=False):
     return tuple(attn._heads_to_packed(t.to(torch.bfloat16), q.shape[0], h) for t in grads)
 
 
-def against(got, want) -> str:
+def shares(got, want) -> tuple:
+    """(the worst error as a share of the limit, elements past half of it,
+    differing elements as a share of those allowed)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     ratio = err / (RTOL * w.abs() + ATOL_OF_MAX * float(w.abs().max()))
     differ = float((err > 0).sum()) / (DIFFER_SHARE * err.numel() + 4)
-    return f"{float(ratio.max()):.2f} (past half: {int((ratio > 0.5).sum())}, differ {differ:.2f})"
+    return float(ratio.max()), int((ratio > 0.5).sum()), differ
+
+
+def against(got, want) -> str:
+    worst, past_half, differ = shares(got, want)
+    return f"{worst:.2f} (past half: {past_half}, differ {differ:.2f})"
 
 
 def worst_element(got, want, f64) -> str:
@@ -111,30 +127,51 @@ def worst_element(got, want, f64) -> str:
             f"plain {float(w.flatten()[at]):.6f}, f64 {float(f64.float().flatten()[at]):.6f}")
 
 
-def numerics(dev, kernels) -> None:
+def numerics(dev, kernels, seeds=(0,)) -> dict:
+    """Prints the comparisons above at every shape and seed; returns
+    {(kernel, shape): {"plain" | "f64": {"dq" | "dk" | "dv": worst share}}},
+    the tensor-core kernel's worst over the seeds (its worst error or its
+    share of differing elements, whichever is larger)."""
+    worst = {}
     for kernel in kernels:
         wrapper = getattr(attn, f"attention_{kernel}")
         reference = getattr(attn, f"attention_{kernel}_reference")
         folded = kernel == "folded_bwd"
         for b, l, h, dh in NUMERICS_SHAPES[kernel]:
-            q, k, v, do = inputs(b, l, h, dh, dev, folded=folded)
-            extra = () if folded else (h, dh)
-            out = {"tensor cores": wrapper(q, k, v, do, *extra),
-                   "first version": wrapper(q, k, v, do, *extra, kernel="fma"),
-                   "plain": reference(q, k, v, do, *extra),
-                   "f64": f64_reference(q, k, v, do, h, dh, folded)}
-            torch.cuda.synchronize()
-            for got, want in (("tensor cores", "plain"), ("first version", "plain"),
-                              ("tensor cores", "f64"), ("first version", "f64"), ("plain", "f64")):
-                print(f"{kernel} {(b, l, h, dh)} {got} vs {want}: " + "; ".join(
-                    f"{name} {against(g, w)}" for name, g, w in zip(("dq", "dk", "dv"), out[got],
-                                                                   out[want])), flush=True)
-            for name, g, w, e in zip(("dq", "dk", "dv"), out["tensor cores"], out["plain"],
-                                     out["f64"]):
-                print(f"{kernel} {(b, l, h, dh)} tensor cores' worst {name}: "
-                      f"{worst_element(g, w, e)}", flush=True)
-            del out
-            torch.cuda.empty_cache()
+            shape = (b, l, h, dh)
+            mine = worst.setdefault((kernel, shape), {"plain": {}, "f64": {}})
+            for seed in seeds:
+                q, k, v, do = inputs(b, l, h, dh, dev, seed=seed, folded=folded)
+                extra = () if folded else (h, dh)
+                out = {"tensor cores": wrapper(q, k, v, do, *extra),
+                       "first version": wrapper(q, k, v, do, *extra, kernel="fma"),
+                       "plain": reference(q, k, v, do, *extra),
+                       "f64": f64_reference(q, k, v, do, h, dh, folded)}
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                tag = f"{kernel} {shape} seed {seed}"
+                for got, want in (("tensor cores", "plain"), ("first version", "plain"),
+                                  ("tensor cores", "f64"), ("first version", "f64"),
+                                  ("plain", "f64")):
+                    print(f"{tag} {got} vs {want}: " + "; ".join(
+                        f"{name} {against(g, w)}" for name, g, w in zip(("dq", "dk", "dv"), out[got],
+                                                                       out[want])), flush=True)
+                for want in ("plain", "f64"):
+                    for name, g, w in zip(("dq", "dk", "dv"), out["tensor cores"], out[want]):
+                        ratio, _, differ = shares(g, w)
+                        mine[want][name] = max(mine[want].get(name, 0.0), ratio, differ)
+                for name, g, w, e in zip(("dq", "dk", "dv"), out["tensor cores"], out["plain"],
+                                         out["f64"]):
+                    print(f"{tag} tensor cores' worst {name}: {worst_element(g, w, e)}", flush=True)
+                del out
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            print(f"{kernel} {shape} seeds {' '.join(map(str, seeds))}: tensor cores' worst share "
+                  "of the limit " + "; ".join(
+                      f"vs {want} " + ", ".join(f"{name} {mine[want][name]:.2f}"
+                                                for name in ("dq", "dk", "dv"))
+                      for want in ("plain", "f64")), flush=True)
+    return worst
 
 
 def start_patched_build(kernel: str, name: str, skip: tuple):
@@ -223,21 +260,27 @@ def phases(dev, kernels) -> None:
                 print(f"{kernel} {(b, l, h, dh)} {name}: {event_ms(launch):.4f} ms", flush=True)
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--numerics", action="store_true")
     parser.add_argument("--phases", action="store_true")
     parser.add_argument("--kernels", nargs="+", choices=tuple(PHASE_KERNELS),
                         default=list(PHASE_KERNELS),
                         help="the kernels --numerics checks and --phases times")
-    args = parser.parse_args(argv)
+    parser.add_argument("--seeds", nargs="+", type=int, default=[0],
+                        help="the input seeds --numerics draws (0 is chip_smoke.py's)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attn_bwd_study: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     print(torch.cuda.get_device_name(0), flush=True)
     if args.numerics:
-        numerics(dev, args.kernels)
+        numerics(dev, args.kernels, args.seeds)
     if args.phases:
         phases(dev, args.kernels)
 

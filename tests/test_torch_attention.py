@@ -601,3 +601,35 @@ def test_dispatch_takes_the_forward_only_kernel_without_a_gradient(monkeypatch):
     for route in ("lane_slice", "packed", "xla"):
         with pytest.raises(ValueError, match="route must be one of"):
             tattn.tiny_head_attention(q, k, v, route=route)
+
+
+def test_backward_study_numerics_draws_every_seed_given(monkeypatch):
+    """``attn_bwd_study --numerics --seeds`` reaches ``inputs(..., seed=)``
+    once a shape and seed, and the worst shares it returns cover dq, dk and
+    dv against the plain version and the f64 computation. On the CPU the
+    wrappers are the plain versions, so the shares against the plain version
+    are 0; no timing or card is involved."""
+    from rl_selfplay_mnk_tpu_torch.utils import attn_bwd_study as study
+
+    args = study.parse_args(["--numerics", "--seeds", "0", "5", "11", "--kernels", "packed_bwd"])
+    assert (args.numerics, args.seeds, args.kernels) == (True, [0, 5, 11], ["packed_bwd"])
+    assert study.parse_args(["--numerics"]).seeds == [0]
+    assert {(8192, 81, 4, 14), (2048, 169, 8, 12)} <= set(study.NUMERICS_SHAPES["packed_bwd"])
+    shapes = ((2, 9, 2, 14), (1, 25, 3, 12))
+    monkeypatch.setitem(study.NUMERICS_SHAPES, "packed_bwd", shapes)
+    drawn, inputs = [], study.inputs
+
+    def recording(b, l, h, dh, dev, seed=0, folded=False):
+        drawn.append(((b, l, h, dh), seed))
+        return inputs(b, l, h, dh, dev, seed=seed, folded=folded)
+
+    monkeypatch.setattr(study, "inputs", recording)
+    worst = study.numerics(torch.device("cpu"), args.kernels, args.seeds)
+    assert drawn == [(shape, seed) for shape in shapes for seed in (0, 5, 11)]
+    assert set(worst) == {("packed_bwd", shape) for shape in shapes}
+    for shares in worst.values():
+        assert shares["plain"] == {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        assert set(shares["f64"]) == {"dq", "dk", "dv"}
+        assert all(0.0 <= x < float("inf") for x in shares["f64"].values())
+    # Another seed draws other inputs.
+    assert not torch.equal(inputs(2, 9, 2, 14, "cpu", seed=0)[0], inputs(2, 9, 2, 14, "cpu", seed=5)[0])

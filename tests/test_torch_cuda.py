@@ -17,6 +17,7 @@ from rl_selfplay_mnk_tpu_torch.ops.resblock import (
     fused_residual_block,
     fused_residual_block_reference,
 )
+from rl_selfplay_mnk_tpu_torch.utils import attn_bwd_study
 
 pytestmark = pytest.mark.cuda
 
@@ -29,14 +30,42 @@ def device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("mnk,e", [((3, 3, 3), 8191), ((9, 9, 5), 384), ((13, 13, 5), 33)])
-def test_env_step_kernel_bitwise(device, mnk, e):
+def env_actions(rng, mask, play, t):
+    """A random legal cell per env (cell 0 on a full board); for ``play``
+    "wild", every third step a quarter of the envs play a cell that holds a
+    stone, and every third another quarter an action off the board."""
+    actions = np.where(mask, rng.random(mask.shape), -1).argmax(1)
+    pick = rng.random(mask.shape[0]) < 0.25
+    if play == "wild" and t % 3 == 1:
+        occupied = np.where(~mask, rng.random(mask.shape), -1.0)
+        actions = np.where(pick & (~mask).any(1), occupied.argmax(1), actions)
+    elif play == "wild" and t % 3 == 2:
+        off = np.array([-1, -5, mask.shape[1], 1000, 2**31 - 1, -(2**40)])
+        actions = np.where(pick, rng.choice(off, mask.shape[0]), actions)
+    return actions
+
+
+# Games played past their end (no resets): a small board at an odd count
+# above the bench's, the rollout batch, 13x13 at a ragged count, and the
+# shapes where the kernel has work (bench.py's 8192 envs on 9x9, 13x13 at the
+# rollout batch); then occupied cells and actions off the board.
+@pytest.mark.parametrize("mnk,e,play", [
+    pytest.param((3, 3, 3), 8191, "legal", id="mnk0-8191"),
+    pytest.param((9, 9, 5), 384, "legal", id="mnk1-384"),
+    pytest.param((13, 13, 5), 33, "legal", id="mnk2-33"),
+    pytest.param((9, 9, 5), 8192, "legal", id="9x9x5-8192"),
+    pytest.param((13, 13, 5), 384, "legal", id="13x13x5-384"),
+    pytest.param((9, 9, 5), 8192, "wild", id="wild-9x9x5-8192"),
+    pytest.param((13, 13, 5), 384, "wild", id="wild-13x13x5-384"),
+    pytest.param((3, 3, 3), 257, "wild", id="wild-3x3x3-257"),
+])
+def test_env_step_kernel_bitwise(device, mnk, e, play):
     cfg = EnvConfig(*mnk)
     rng = np.random.default_rng(0)
     state = make_env_state(cfg, e, device)
     mask = np.ones((e, cfg.num_actions), bool)
-    for _ in range(cfg.num_actions + 2):
-        actions = torch.as_tensor(np.where(mask, rng.random(mask.shape), -1).argmax(1), device=device)
+    for t in range(cfg.num_actions + 2):
+        actions = torch.as_tensor(env_actions(rng, mask, play, t), device=device)
         active = torch.as_tensor(rng.random(e) < 0.8, device=device)
         before = fused_step.launches
         got = fused_step(cfg, state, actions, active)
@@ -46,6 +75,40 @@ def test_env_step_kernel_bitwise(device, mnk, e):
             assert g.dtype == w.dtype and torch.equal(g, w)
         state = got[0]
         mask = got[3].cpu().numpy()
+
+
+# Planes holding what a caller may put there: stacked stones, halves,
+# negatives and, in some envs, infinities and NaN (every line count of the
+# product is NaN then: no win); any player number, actions on and off the
+# board. The float sums are exact, so the kernel's and the product's agree.
+@pytest.mark.parametrize("mnk,e", [((9, 9, 5), 2048), ((13, 13, 5), 384), ((5, 5, 4), 64)])
+def test_env_step_kernel_bitwise_on_any_plane_values(device, mnk, e):
+    cfg = EnvConfig(*mnk)
+    mn = cfg.num_actions
+    rng = np.random.default_rng(1)
+    values = np.array([0.0, 1.0, 2.0, 0.5, -1.0, 3.0], np.float32)
+    for _ in range(4):
+        planes = np.where(rng.random((e, 2, mn)) < 0.6, 0.0,
+                          rng.choice(values, (e, 2, mn), p=[0.1, 0.6, 0.1, 0.1, 0.05, 0.05]))
+        planes = planes.astype(np.float32)
+        wild = rng.random((e, 2, mn)) < 0.002
+        planes[wild] = rng.choice(np.array([np.inf, -np.inf, np.nan], np.float32), int(wild.sum()))
+        state = make_env_state(cfg, e, device)._replace(
+            boards=torch.as_tensor(planes.reshape(e, 2, *mnk[:2]), device=device),
+            current_player=torch.as_tensor(rng.choice([0, 1, 1, 2, -1], e).astype(np.int32),
+                                           device=device),
+            move_count=torch.as_tensor(rng.integers(0, mn + 3, e).astype(np.int32), device=device))
+        actions = torch.as_tensor(rng.integers(-3, mn + 3, e), device=device)
+        active = torch.as_tensor(rng.random(e) < 0.8, device=device)
+        got = fused_step(cfg, state, actions, active)
+        want = fused_step_reference(cfg, state, actions, active)
+        assert want[1].sum() > 0 and want[2].sum() > 0  # wins and dones to agree on
+        for g, w in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
+            assert g.dtype == w.dtype
+            if g.dtype == torch.float32:
+                assert torch.equal(g.isnan(), w.isnan())
+                g, w = g.nan_to_num(nan=7.0), w.nan_to_num(nan=7.0)
+            assert torch.equal(g, w)
 
 
 def resblock_inputs(device, dtype, b, m, c):
@@ -324,6 +387,39 @@ def test_packed_backward_tensor_cores_within_tolerance(device, l, h, dh):
     for name, g, w in zip(("dq", "dk", "dv"), attn.attention_packed_bwd(q, k, v, do, h, dh,
                                                                        kernel="fma"), want):
         assert_attn_close(g, w, torch.bfloat16, f"fma {name}")
+
+
+# K9 at the two update minibatches with heads below 16 channels (9x9 with
+# four heads of 14, 13x13 with eight of 12), where it sums S (both passes)
+# and dP^T a depth pair at a time: the unchanged bf16 limit against the
+# plain version, the same bits twice, on the inputs of
+# utils/attn_bwd_study.py --numerics --seeds 0 1 2 (seed 0 is chip_smoke.py's).
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,l,h,dh", [(8192, 81, 4, 14), (2048, 169, 8, 12)])
+def test_packed_backward_at_the_tiny_head_minibatches(device, b, l, h, dh, seed):
+    q, k, v, do = attn_bwd_study.inputs(b, l, h, dh, device, seed=seed)
+    got = attn.attention_packed_bwd(q, k, v, do, h, dh)
+    again = attn.attention_packed_bwd(q, k, v, do, h, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          attn.attention_packed_bwd_reference(q, k, v, do, h, dh)):
+        assert_attn_close(g, w, torch.bfloat16, name)
+
+
+# On this file's own inputs at (2048, 169, 8, 12) the plain f32 version is
+# itself 1.06 (dq) and 1.09 (dk) of the limit from the f64 computation with
+# its rounding points, and the FMA first version 1.05 and 1.08 from the plain
+# one (utils/attn_bwd_study.py --numerics, NVIDIA H100 80GB HBM3, 700 W): there
+# the tensor-core K9 is held against the f64 computation, as the board
+# forwards are at 150 boards.
+def test_packed_backward_where_the_plain_version_misses_the_f64_computation(device):
+    b, l, h, dh = 2048, 169, 8, 12
+    q, k, v, do = attn_inputs(device, torch.bfloat16, b, l, h, dh, packed=True)
+    got = attn.attention_packed_bwd(q, k, v, do, h, dh)
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          attn_bwd_study.f64_reference(q, k, v, do, h, dh)):
+        assert_attn_close(g, w, torch.bfloat16, name)
 
 
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "attn_packed_bwd_mma_launch"),
