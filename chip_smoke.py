@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero:
    every third another playing an action out of range, half of the finished
    games played on past their end; all six outputs bitwise equal;
 3. residual-block kernel (K2) against its plain version (f32 products, TF32
-   off) at B in {256, 384, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 (the
+   off) at B in {256, 384, 8192, 8191, 16, 1}, 9x9, C in {32, 64}, bf16 (the
    tensor-core kernel, run twice: the same bits) and f32 (the FMA kernel),
    within the stated tolerances;
 4. the seven attention kernels (K3 folded forward, K4 folded backward, K8
@@ -28,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    minibatch, rollout and validation batch, a tournament half-pairing) and
    at odd, small and wide ones, within the stated tolerances; all seven in
    bf16 (the tensor-core kernels) run twice: the same bits; their first,
-   FMA versions on the same bf16 inputs are held to the same limit;
+   FMA versions on the same bf16 inputs are held to the same limit; K9 also
+   at (384, 81, 3, 32) on the inputs of seed 2;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
@@ -41,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    transformer family's hyper-parameters (9x9x5, batch 8192) for 4
    iterations with a validation and an export after each but the first; K1,
    the no-gradient forward kernel (K5) and the pair of the default
-   with-gradient route above 0, the packed pair 0;
+   with-gradient route above 0, the packed pair 0; its metrics stream holds
+   the watch record at iteration 0 only, with every parameter's keys;
 7. train path B: ``transformer_b_s_w`` on 13x13x5 (batch 4096) for 3
    iterations with one validation; K1's and the packed pair's counters
    above 0, the folded pair's 0; then the trained network's bf16 forward
@@ -51,7 +53,15 @@ Phases, in order; any failure exits non-zero:
    with its ``attention_fn`` forced to the with-gradient route that the
    default does not take, so the folded pair and the in-kernel-fold pair are
    each launched on a train path;
-9. the serving path, through ``compare_models.main`` and ``play.main``:
+9. resume: the default config cut after 2 iterations (a checkpoint at
+   iteration 1) and resumed for a third: it starts at iteration 2, with the
+   opponent sources of path 5's uninterrupted run, each iteration logged
+   once, finite losses;
+10. the bench entry (``rl_selfplay_mnk_tpu_torch.bench.main``) at full
+   width, 9x9x5 ``resnet_b_s``, 8192 envs, batch 8192, cut to 32 steps, one
+   warm-up and one timed iteration: its JSON line, a finite positive
+   throughput, K1 and K2 launched and no attention kernel;
+11. the serving path, through ``compare_models.main`` and ``play.main``:
    (a) a 9x9x5 round robin, 32 games a pairing, over the six committed
    ``models/tpu_smoke30`` exports and path A's fresh exports: K1, K2 and K5
    above 0, every pairing's games add up, the last committed export takes
@@ -60,7 +70,7 @@ Phases, in order; any failure exits non-zero:
    and K8 above 0, the last takes at least 28 of 32 from the first; then one
    game of the last ``tpu_smoke30`` export against the random policy, which
    the export wins;
-10. timings at the paths' shapes, after warm-up: device time per call from
+12. timings at the paths' shapes, after warm-up: device time per call from
    ``torch.profiler`` (``ms``, ``plain_ms``, ``library_ms``) and the
    per-call time between CUDA events (``call_ms``...) for each kernel, its
    plain version and a library yardstick that the port never calls (two
@@ -68,10 +78,10 @@ Phases, in order; any failure exits non-zero:
    kernels: its forward, and forward plus backward beside the backward
    kernels); K1 at ``utils/env_step_study.py``'s shapes (9x9x5 at 384 and
    8192 envs, 13x13x5 at 384, 9x9x5 at 16; 500 launches) with its
-   registers, spill bytes and blocks an SM; K2 at B = 384, 16 and 1, each
-   attention kernel at its update
-   minibatch and at the rollout batch of 384, K5-K7 also at a tournament
-   half-pairing of 16; K2 and the seven attention kernels in bf16 also
+   registers, spill bytes and blocks an SM; K2 at B = 384, 8192, 16 and 1,
+   each attention kernel at its update minibatch and at the rollout batch of
+   384, K5-K7 also at a tournament half-pairing of 16, K9 also at (384, 81,
+   3, 32); K2 and the seven attention kernels in bf16 also
    through their first version, the FMA kernel (``first_version_ms``); the
    tensor-core instantiations of K4-K9 on the paths with their registers,
    spill bytes and blocks an SM, and for K5, K6 and K7 the block's unit of
@@ -102,9 +112,10 @@ K1_STEPS = 60
 # all off the board, in place of a legal move.
 K1_WILD_ACTIONS = (-1, -7, 81, 169, 1000, 2**31 - 1, -(2**40))
 # Validation and rollout batches, an odd one, a tournament half-pairing, one game.
-K2_CASES = [(b, c) for b in (256, 384, 8191, 16, 1) for c in (32, 64)]
-# K2 is timed at the rollout batch, a tournament half-pairing and one game of play.
-K2_TIMED_BATCHES = (384, 16, 1)
+K2_CASES = [(b, c) for b in (256, 384, 8192, 8191, 16, 1) for c in (32, 64)]
+# K2 is timed at the rollout batch, the bench's 8192 envs, a tournament
+# half-pairing and one game of play.
+K2_TIMED_BATCHES = (384, 8192, 16, 1)
 # |kernel - plain| <= atol + rtol * |plain|
 K2_TOL = {
     "float32": (1e-4, 1e-4),  # f32 sums over 9C <= 576 products, in another order
@@ -130,6 +141,10 @@ ATTN_PACKED_SHAPES = ((4096, 169, 2, 64), (384, 169, 2, 64), (256, 169, 2, 64),
 ATTN_BOARD_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (256, 81, 4, 14), (16, 81, 4, 14),
                      (383, 81, 4, 14), (2048, 169, 8, 12), (64, 169, 8, 12), (8, 9, 4, 14),
                      (384, 169, 8, 12), (16, 169, 8, 12))
+# K9 at inputs of other seeds (attn_inputs' ``seed``): (384, 81, 3, 32), the
+# transformer_s and transformer_l updates' heads, at the seed where pass 1's
+# S as one 16-deep product a step put dq at 1.54 of the bf16 limit.
+K9_SEEDED_CASES = (((384, 81, 3, 32), 2),)
 # f32: |kernel - plain| <= 2e-5 * (1 + |plain|): sums over Dh <= 64 and
 # L <= 169 terms in another order.
 ATTN_F32_TOL = 2e-5
@@ -463,6 +478,30 @@ def phase_attention(torch, dev):
                     report.append(f"{kernel} {max(errs):.3e} ({share:.2f} of the limit)")
                 print(f"attention {name} (B, L, H, Dh)={(b, l, h, dh)}: max_abs_err "
                       + ", ".join(report) + " ok")
+    # K9 on the inputs of other seeds, bf16, against its plain version, the
+    # same bits twice.
+    bwd, bwd_ref = attn_kernel("attn_packed_bwd")
+    for (b, l, h, dh), seed in K9_SEEDED_CASES:
+        q, k, v, do = attn_inputs(torch, dev, torch.bfloat16, b, l, h, dh, True, seed=seed)
+        got = bwd(q, k, v, do, h, dh)
+        again = bwd(q, k, v, do, h, dh)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"attn_packed_bwd (B, L, H, Dh)={(b, l, h, dh)} seed {seed}: "
+                                 "two runs differ")
+        report = []
+        for key, g, w in zip(("dq", "dk", "dv"), got, bwd_ref(q, k, v, do, h, dh)):
+            err, of_limit, differ = attn_excess(torch, g, w)
+            worst["bfloat16"] = max(worst["bfloat16"], of_limit)
+            worst["differ"] = max(worst["differ"], differ)
+            if not max(of_limit, differ) <= 1.0:
+                raise AssertionError(
+                    f"attn_packed_bwd bfloat16 (B, L, H, Dh)={(b, l, h, dh)} seed {seed}: {key} "
+                    f"outside its tolerance: max abs err {err:.3e}, worst error {of_limit:.2f} of "
+                    f"its limit, differing elements {differ:.2f} of theirs")
+            report.append(f"{key} {err:.3e} ({max(of_limit, differ):.2f} of the limit)")
+        print(f"attention bfloat16 attn_packed_bwd (B, L, H, Dh)={(b, l, h, dh)} seed {seed}: "
+              "max_abs_err " + ", ".join(report) + ", same bits twice ok")
     print(f"attention: worst error as a share of its limit: f32 {worst['float32']:.2f} "
           f"(limit {ATTN_F32_TOL:.0e} * (1 + |ref|)), bf16 {worst['bfloat16']:.2f} "
           f"(limit 2^-7 * |ref| + 2^-10 * max|ref|); bf16 elements that differ: "
@@ -474,7 +513,8 @@ def phase_train(torch, dev, label, config, iterations, launched, not_launched=()
     """``iterations`` of ``train_mnk`` with ``config``: every kernel's launch
     count set to 0 just before and read just after. Kernels in ``launched``
     must have run, those in ``not_launched`` must not. Returns (launches,
-    trained model, directory of the exports)."""
+    ``train_mnk``'s summary: the trained model, the exports' directory, the
+    metrics stream...)."""
     from rl_selfplay_mnk_tpu_torch.train import train_mnk
     from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
 
@@ -513,7 +553,120 @@ def phase_train(torch, dev, label, config, iterations, launched, not_launched=()
     for name in not_launched:
         if launches[name] != 0:
             raise AssertionError(f"{label}: kernel {name} was launched {launches[name]} times")
-    return launches, summary["model"], summary["export_dir"]
+    return launches, summary
+
+
+def last_run_records(path):
+    """The records of the last run in a metrics stream (after its last config
+    line: a stream is appended to when a run's name comes back)."""
+    records = [json.loads(line) for line in open(path)]
+    start = max(i for i, r in enumerate(records) if r.get("_type") == "config")
+    return records[start + 1:]
+
+
+def phase_watch_record(summary, config):
+    """The watch record of a train path run with the default
+    ``watch_interval`` (20): logged at iteration 0 only, with a gradient
+    norm, a gradient histogram and a parameter norm for every parameter, by
+    its path in the JAX package's ``params`` tree; the norms finite, each
+    histogram counting every element of every update."""
+    from rl_selfplay_mnk_tpu_torch.models.convert import flax_param_paths
+
+    named = dict(summary["model"].named_parameters())
+    leaves = flax_param_paths(named)
+    want = {f"{kind}/{leaf}/{what}" for leaf in leaves.values()
+            for kind, what in (("gradients", "norm"), ("gradients", "hist"), ("parameters", "norm"))}
+    watched = [r for r in last_run_records(summary["jsonl_path"])
+               if any(k.startswith("gradients/") for k in r)]
+    steps_per_iteration = config["num_envs"] * config["n_steps"]
+    if [r["_step"] for r in watched] != [steps_per_iteration]:
+        raise AssertionError(f"watch records at steps {[r['_step'] for r in watched]}, expected "
+                             f"[{steps_per_iteration}] (iteration 0)")
+    record = watched[0]
+    keys = set(record) - {"_step", "_time"}
+    if keys != want:
+        raise AssertionError(f"watch record keys: {len(keys)}, expected {len(want)}; "
+                             f"missing {sorted(want - keys)[:4]}, extra {sorted(keys - want)[:4]}")
+    updates = 4 * steps_per_iteration // config["batch_size"]
+    for name, leaf in leaves.items():
+        norms = (record[f"gradients/{leaf}/norm"], record[f"parameters/{leaf}/norm"])
+        if not all(isinstance(v, float) and math.isfinite(v) for v in norms):
+            raise AssertionError(f"watch record: {leaf} norms {norms}")
+        if sum(record[f"gradients/{leaf}/hist"]["counts"]) != updates * named[name].numel():
+            raise AssertionError(f"watch record: {leaf}'s gradient histogram does not count "
+                                 f"{updates} updates of {named[name].numel()} elements")
+    print(f"watch record at iteration 0: {len(leaves)} parameters, each with a gradient norm and "
+          f"histogram over {updates} updates and a parameter norm, keyed by the JAX package's "
+          f"paths (e.g. {next(iter(leaves.values()))}); no other watch record")
+
+
+def phase_resume(torch, dev, straight_sources, tmp):
+    """The default config (9x9x5 ``resnet_b_s``, 384 envs) cut after two
+    iterations, with a checkpoint at iteration 1, and resumed for a third
+    under the same run name: it starts at iteration 2, draws the opponent
+    sources of the first train path's uninterrupted run (the same config and
+    seed), logs each iteration once, and its losses are finite. Bitwise
+    equality is not asked on the card: cuDNN's backward sums in no fixed
+    order (the CPU tests hold it)."""
+    from rl_selfplay_mnk_tpu_torch.train import build_config, train_mnk
+    from rl_selfplay_mnk_tpu_torch.utils.metrics import MetricsLogger
+
+    config = build_config()
+    config.update(validation_interval=2, export_dir=f"{tmp}/models", checkpoint_interval=1,
+                  checkpoint_dir=f"{tmp}/checkpoints")
+    steps = config["num_envs"] * config["n_steps"]
+    t0 = time.perf_counter()
+    runs = []
+    for iterations, resume in ((2, False), (3, True)):
+        config.update(total_environment_steps=iterations * steps, resume=resume)
+        with MetricsLogger(run_name="resume", config=config, out_dir=f"{tmp}/runs") as logger:
+            runs.append(train_mnk(dict(config), logger, device=str(dev)))
+    torch.cuda.synchronize()
+    cut, resumed = runs
+    for run in runs:
+        if run["errors"]:
+            raise AssertionError(f"resume: training iterations failed: {run['errors']}")
+        for m in run["iterations"]:
+            if not all(math.isfinite(m[key]) for key in ("actor_loss", "critic_loss", "entropy_loss")):
+                raise AssertionError(f"resume: losses not finite: {m}")
+    if resumed["start_iteration"] != 2 or len(resumed["iterations"]) != 1:
+        raise AssertionError(f"resume: started at iteration {resumed['start_iteration']} and ran "
+                             f"{len(resumed['iterations'])}, expected 2 and 1")
+    sources = cut["opponent_sources"] + resumed["opponent_sources"]
+    if sources != straight_sources[:3]:
+        raise AssertionError(f"resume: opponent sources {sources}, uninterrupted {straight_sources}")
+    logged = [r["_step"] for r in map(json.loads, open(f"{tmp}/runs/resume.jsonl"))
+              if "training/mean_reward" in r]
+    if logged != [steps, 2 * steps, 3 * steps]:
+        raise AssertionError(f"resume: the stream logs iterations at steps {logged}")
+    print(f"resume: cut after 2 iterations, resumed at iteration {resumed['start_iteration']} for 1 "
+          f"in {time.perf_counter() - t0:.1f}s; opponent sources {sources} as the uninterrupted "
+          f"run's; each iteration logged once")
+
+
+def phase_bench(torch, label):
+    """The port's bench entry, ``rl_selfplay_mnk_tpu_torch.bench.main``, at
+    full width (9x9x5 ``resnet_b_s``, 8192 envs, batch 8192), its depth cut
+    to 32 steps (128 updates an iteration), one warm-up and one timed
+    iteration; the counts set to 0 just before and read just after: K1 and
+    K2 launched, no attention kernel; the throughput finite and positive."""
+    from rl_selfplay_mnk_tpu_torch import bench
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    record = bench.main(["--n-steps", "32", "--warmup", "1", "--iters", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if not (math.isfinite(record["value"]) and record["value"] > 0):
+        raise AssertionError(f"{label}: {record}")
+    for name, count in launches.items():
+        if (count > 0) != (name in ("env_step", "resblock")):
+            raise AssertionError(f"{label}: kernel {name} launched {count} times")
+    print(f"{label}: {record['value']} env-steps/s in {wall:.1f}s with set-up; launches "
+          f"{json.dumps(launches)}")
+    return launches
 
 
 def read_csv(path):
@@ -752,6 +905,8 @@ def attention_kernel_records(torch, dev, launches, attn_errors):
         record["at_rollout_batch"] = at[1]
         if len(at) > 2:
             record["at_tournament_batch"] = at[2]
+        if name == "attn_packed_bwd":  # the transformer_s and transformer_l updates' heads
+            record["at_dh32_minibatch"] = time_attention(torch, dev, name, 384, 81, 3, 32)
         if name in INSTANTIATIONS:
             record["instantiations"] = instantiations(torch, dev, name)
         records.append(record)
@@ -945,6 +1100,7 @@ def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors):
             **{key: value for key, value in k2[384].items() if key != "shape"},
             "library": "two F.conv2d (cuDNN), with the bias, ReLU and residual",
             "shape": k2[384]["shape"],
+            "at_bench_batch": k2[8192],
             "at_tournament_batch": k2[16],
             "at_play_batch": k2[1],
         },
@@ -958,8 +1114,8 @@ def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors):
               f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}")
         if "resources" in k:
             print(f"  registers, spill bytes, blocks an SM: {k['resources']}")
-        for key in ("at_bench_batch", "at_13x13", "at_rollout_batch", "at_tournament_batch",
-                    "at_play_batch"):
+        for key in ("at_bench_batch", "at_13x13", "at_rollout_batch", "at_dh32_minibatch",
+                    "at_tournament_batch", "at_play_batch"):
             r = k.get(key)
             if r:
                 first = f" (first version {r['first_version_ms']:.5f})" if "first_version_ms" in r else ""
@@ -1020,27 +1176,30 @@ def main() -> int:
         config = build_config()
         config.update(validation_interval=2, export_dir=f"{tmp}/models")
         label = "resnet_b_s 9x9x5"
-        paths[label], model, _ = phase_train(
+        paths[label], summary = phase_train(
             torch, dev, label, config, 3, ("env_step", "resblock"),
             folded + infold + packed + ("attn_lane_slice_fwd",))
-        phase_eval_check(torch, np, dev, model)
+        phase_eval_check(torch, np, dev, summary["model"])
+        sources = summary["opponent_sources"]
 
         # Path A: rollouts, opponents and validations record no gradient (K5),
         # the update does (the default pair).
         config = build_config("transformer_b_s")
         config.update(validation_interval=1, export_dir=f"{tmp}/models")
         label_a = "transformer_b_s 9x9x5"
-        paths[label_a], _, exports_a = phase_train(
+        paths[label_a], summary = phase_train(
             torch, dev, label_a, config, 4, ("env_step", "attn_lane_slice_fwd") + default_pair,
             packed + other_pair + ("resblock",), validations=3)
+        exports_a = summary["export_dir"]
+        phase_watch_record(summary, config)
 
         config = build_config("transformer_b_s_w", (13, 13, 5), 4096)
         config.update(validation_interval=2, export_dir=f"{tmp}/models")
         label_b = "transformer_b_s_w 13x13x5"
-        paths[label_b], model, _ = phase_train(
+        paths[label_b], summary = phase_train(
             torch, dev, label_b, config, 3, ("env_step",) + packed,
             folded + infold + ("resblock", "attn_lane_slice_fwd"))
-        phase_transformer_eval_check(torch, np, dev, model, (13, 13, 5))
+        phase_transformer_eval_check(torch, np, dev, summary["model"], (13, 13, 5))
 
         # Path C: the gated family with every attention forced to the other
         # with-gradient route, forwards without a gradient included.
@@ -1051,11 +1210,15 @@ def main() -> int:
         registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = functools.partial(
             factory, attention_fn=functools.partial(tiny_head_attention, route=other_route))
         try:
-            paths[label_c], _, _ = phase_train(
+            paths[label_c], _ = phase_train(
                 torch, dev, label_c, config, 2, ("env_step",) + other_pair,
                 packed + default_pair + ("resblock", "attn_lane_slice_fwd"))
         finally:
             registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = factory
+
+        phase_resume(torch, dev, sources, tmp)
+        label_bench = "bench 9x9x5 8192 envs"
+        paths[label_bench] = phase_bench(torch, label_bench)
 
         # The serving path.
         label_9 = "tournament 9x9x5"
@@ -1075,7 +1238,7 @@ def main() -> int:
     # Each kernel's launches: the count of the first of these paths that ran it.
     launches = {}
     for name in paths[label]:
-        for path in (label_9, label_13, label_a, label_b, label_c, label):
+        for path in (label_9, label_13, label_a, label_b, label_c, label, label_bench):
             if paths[path][name] > 0:
                 launches[name] = (paths[path][name], path)
                 break

@@ -15,6 +15,15 @@ Counterpart of the JAX package's ``alg/ppo.py`` for one device:
     clip fraction, approx-KL and explained variance.
   * ``PPOOptimizer``: global-norm clip 0.5, then AdamW (eps 1e-5, weight
     decay 0.01) with the lr schedule evaluated at the update count.
+  * the watch (``run.watch`` in the reference): on an iteration that asks
+    for it, ``GradWatch`` accumulates every update's pre-clip gradients on
+    the device (each leaf's squared L2 norm and, with ``watch_hist_bins``,
+    a signed-log histogram) and ``learn`` fetches them once, as RMS norms
+    and counts under the JAX package's keys; ``param_stats`` gives the
+    parameters' norms and histograms.
+  * ``fin_blocks`` > 0: the finished-episode sums come back per block of
+    ``num_envs / fin_blocks`` envs, the layout of
+    ``selfplay.policies.make_block_policy``, as ``block_rewards``.
 
 Every stochastic step takes its draws from an explicit ``torch.Generator``
 or from the caller: sampling noise and side draws (``rollout_impl``'s
@@ -33,6 +42,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..env.mnk_env import EnvConfig
+from ..models.convert import flax_param_paths
 from ..models.registry import train_apply
 from ..ops.masked import entropy as masked_entropy
 from ..ops.masked import log_prob, mask_logits, masked_sample
@@ -61,6 +71,11 @@ class PPOConfig:
     value_coef: float = 0.5
     shuffle: str = "global"
     group_size: int = 128
+    # Signed-log gradient histograms on watch iterations: this many
+    # magnitude bins a sign plus a near-zero bin; 0 = norms only.
+    watch_hist_bins: int = 0
+    # > 0: per-block finished-episode sums over this many env blocks.
+    fin_blocks: int = 0
 
     @property
     def total_batch(self) -> int:
@@ -90,7 +105,11 @@ def pick_group_size(batch_size: int, target: int = 128) -> int:
 
 @dataclasses.dataclass
 class TrainingMetrics:
-    """Per-iteration metrics (the JAX package's fields on this path)."""
+    """Per-iteration metrics, the JAX package's fields: the reference's
+    twelve, ``layer_grad_norms`` on a watch iteration (``{"gradients/<leaf>/
+    norm": ..., "gradients/<leaf>/hist": {...}}``) and, with ``fin_blocks``,
+    ``block_rewards`` (each block's mean finished-episode reward, None for a
+    block that finished none)."""
 
     mean_reward: float
     mean_length: float
@@ -104,6 +123,95 @@ class TrainingMetrics:
     fps: float
     rollout_time: float
     learn_time: float
+    layer_grad_norms: Optional[dict] = None
+    block_rewards: Optional[list] = None
+
+    def scalars(self) -> dict:
+        """The twelve per-iteration numbers."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name not in ("layer_grad_norms", "block_rewards")}
+
+
+# Signed-log gradient histograms (the JAX package's layout): magnitude bins
+# over |g| in [1e-10, 1e2), values below 1e-10 in the central bin, values
+# above 1e2 in the outermost bin of their sign.
+_GRAD_HIST_LO = -10.0
+_GRAD_HIST_HI = 2.0
+
+
+def grad_hist_edges(bins_per_sign: int) -> list:
+    """Bin edges in value space: [-10^HI ... -10^LO, 10^LO ... 10^HI]."""
+    step = (_GRAD_HIST_HI - _GRAD_HIST_LO) / bins_per_sign
+    mags = [10.0 ** (_GRAD_HIST_LO + i * step) for i in range(bins_per_sign + 1)]
+    return [-m for m in reversed(mags)] + mags
+
+
+def grad_hist_index(g: torch.Tensor, bins_per_sign: int) -> torch.Tensor:
+    """Each element's bin (int64, 0 .. 2 * bins_per_sign), with the JAX
+    package's arithmetic: the log10 magnitude's bin clipped to the range,
+    the near-zero bin in the middle, negative values mirrored."""
+    x = g.to(torch.float32)
+    mag = torch.log10(torch.clamp(x.abs(), min=1e-30))
+    k = torch.clamp(
+        torch.floor((mag - _GRAD_HIST_LO) / (_GRAD_HIST_HI - _GRAD_HIST_LO) * bins_per_sign),
+        0, bins_per_sign - 1,
+    ).to(torch.int64)
+    return torch.where(mag < _GRAD_HIST_LO, bins_per_sign,
+                       torch.where(x < 0.0, bins_per_sign - 1 - k, bins_per_sign + 1 + k))
+
+
+class GradWatch:
+    """One iteration's gradient statistics, kept on the device: each leaf's
+    sum of squared L2 norms over the updates and, with ``bins`` > 0, its
+    signed-log histogram counts. ``add`` takes an update's pre-clip
+    gradients in a few launches for all leaves at once (one concatenation,
+    the bin arithmetic, one scatter-add at precomputed leaf offsets);
+    ``fetch`` brings everything to the host once."""
+
+    def __init__(self, names, params, bins: int):
+        device = params[0].device
+        self.names, self.bins, self.updates = list(names), bins, 0
+        self.sq = torch.zeros((len(params),), dtype=torch.float32, device=device)
+        if bins:
+            nb = 2 * bins + 1
+            sizes = torch.tensor([p.numel() for p in params])
+            self.offsets = torch.repeat_interleave(torch.arange(len(params)) * nb, sizes).to(device)
+            self.ones = torch.ones_like(self.offsets)
+            self.hist = torch.zeros((len(params) * nb,), dtype=torch.int64, device=device)
+
+    def add(self, grads, norms) -> None:
+        self.sq += torch.stack(norms).square()
+        if self.bins:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self.hist.index_add_(0, grad_hist_index(flat, self.bins) + self.offsets, self.ones)
+        self.updates += 1
+
+    def fetch(self) -> dict:
+        """``gradients/<leaf>/norm``: the RMS over the updates of the leaf's
+        gradient norm; ``gradients/<leaf>/hist``: the counts over every
+        update."""
+        norms = (self.sq / max(self.updates, 1)).sqrt().tolist()
+        out = {f"gradients/{name}/norm": v for name, v in zip(self.names, norms)}
+        if self.bins:
+            edges = grad_hist_edges(self.bins)
+            counts = self.hist.view(len(self.names), -1).tolist()
+            for name, c in zip(self.names, counts):
+                out[f"gradients/{name}/hist"] = {"_type": "histogram", "counts": c, "edges": edges}
+        return out
+
+
+def histogram(x: torch.Tensor, bins: int):
+    """``jnp.histogram(x, bins)`` on a flat f32 tensor: ``bins`` equal bins
+    from min to max (+-0.5 around a constant), the last including its right
+    edge. Returns (counts, edges) as lists."""
+    lo, hi = (float(v) for v in torch.stack([x.min(), x.max()]).tolist())
+    if lo == hi:
+        lo, hi = lo - 0.5, hi + 0.5
+    edges = torch.linspace(lo, hi, bins + 1, dtype=torch.float32, device=x.device)
+    idx = torch.clamp(torch.bucketize(x, edges, right=True) - 1, 0, bins - 1)
+    counts = torch.zeros((bins,), dtype=torch.int64, device=x.device)
+    counts.index_add_(0, idx, torch.ones_like(idx))
+    return counts.tolist(), edges.tolist()
 
 
 class PPOOptimizer:
@@ -124,10 +232,14 @@ class PPOOptimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
-        """Clip, step, advance the update count; returns the pre-clip norm."""
+    def step(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
+        """Clip, step, advance the update count; returns the pre-clip norm.
+        ``watch`` takes the gradients before the clip."""
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch._foreach_norm(grads)
+        if watch is not None:
+            watch.add(grads, norms)
+        norm = torch.linalg.vector_norm(torch.stack(norms))
         # optax: g if norm < max else g / norm * max
         clipped = norm >= self.max_grad_norm
         scale = torch.where(clipped, self.max_grad_norm / norm, torch.ones_like(norm))
@@ -164,7 +276,8 @@ def rollout_impl(
 
     Returns (sp_state, obs, traj, fin, (ep_rew, ep_len)): traj is a dict of
     (T, E, ...) tensors, fin = (finished reward sum, finished length sum,
-    finished count) as 0-d tensors.
+    finished count), a (3,) tensor, or (3, fin_blocks) with a sum for each
+    block of envs.
     """
     t_len, e = config.n_steps, config.num_envs
     device = ep_rew.device
@@ -178,7 +291,12 @@ def rollout_impl(
         "values": torch.empty((t_len, e), dtype=torch.float32, device=device),
         "dones": torch.empty((t_len, e), dtype=torch.bool, device=device),
     }
-    fin = torch.zeros((3,), dtype=torch.float32, device=device)
+    blocks = config.fin_blocks
+    fin = torch.zeros((3, blocks) if blocks else (3,), dtype=torch.float32, device=device)
+
+    def finsum(x):  # block i = envs [i E / blocks, (i + 1) E / blocks)
+        return x.reshape(blocks, -1).sum(1) if blocks else x.sum()
+
     for t in range(t_len):
         logits, value = train_apply(model, obs["observation"])
         mlogits = mask_logits(logits, obs["action_mask"])
@@ -194,7 +312,7 @@ def rollout_impl(
         ep_rew = ep_rew + rewards
         ep_len = ep_len + 1.0
         d = dones.to(torch.float32)
-        fin += torch.stack([(ep_rew * d).sum(), (ep_len * d).sum(), d.sum()])
+        fin += torch.stack([finsum(ep_rew * d), finsum(ep_len * d), finsum(d)])
         ep_rew = ep_rew * (1.0 - d)
         ep_len = ep_len * (1.0 - d)
         traj["actions"][t] = actions
@@ -271,9 +389,11 @@ def _update_epochs_impl(
     flats: dict,
     entropy_coef: float,
     epoch_indices: Sequence[torch.Tensor],
+    watch: Optional[GradWatch] = None,
 ) -> dict:
     """Minibatch SGD over the given epochs' indices; returns the per-update
-    mean of each metric as a 0-d tensor."""
+    mean of each metric as a 0-d tensor. ``watch`` takes every update's
+    pre-clip gradients."""
     grouped = config.shuffle == "grouped"
     sums = torch.zeros((len(_METRIC_KEYS),), dtype=torch.float32, device=flats["adv"].device)
     n_updates = 0
@@ -304,7 +424,7 @@ def _update_epochs_impl(
 
             optimizer.zero_grad()
             total.backward()
-            grad_norm = optimizer.step()
+            grad_norm = optimizer.step(watch)
 
             with torch.no_grad():
                 clip_frac = ((ratio - 1.0).abs() > config.clip_range).to(torch.float32).mean()
@@ -365,7 +485,8 @@ class PPOLearner:
         return traj, fin
 
     def update(self, traj: dict, entropy_coef: float,
-               epoch_indices: Optional[Sequence[torch.Tensor]] = None) -> dict:
+               epoch_indices: Optional[Sequence[torch.Tensor]] = None,
+               watch: Optional[GradWatch] = None) -> dict:
         """Prepare + ``ppo_epochs`` epochs (indices drawn unless injected)."""
         flats = _update_prepare_impl(self.model, self.config, traj, self._obs)
         if epoch_indices is None:
@@ -374,22 +495,42 @@ class PPOLearner:
                 for _ in range(self.config.ppo_epochs)
             ]
         return _update_epochs_impl(
-            self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices
+            self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices, watch
         )
 
-    def learn(self, opponent, entropy_coef: float) -> TrainingMetrics:
-        """One training iteration."""
+    def leaf_names(self) -> list:
+        """The optimizer's parameters by their path in the JAX package's
+        ``params`` tree, in the optimizer's order."""
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        paths = flax_param_paths(n for n, _ in named)
+        return [paths[n] for n, _ in named]
+
+    def grad_watch(self) -> GradWatch:
+        return GradWatch(self.leaf_names(), self.optimizer.params, self.config.watch_hist_bins)
+
+    def learn(self, opponent, entropy_coef: float, watch: bool = False) -> TrainingMetrics:
+        """One training iteration; ``watch`` also gathers the update's
+        gradient statistics (``layer_grad_norms``)."""
         cfg = self.config
         t0 = time.perf_counter()
         traj, fin = self.rollout(opponent)
         _sync(self.device)
         rollout_time = time.perf_counter() - t0
         t1 = time.perf_counter()
-        metrics = self.update(traj, entropy_coef)
-        host = torch.stack(list(metrics.values()) + list(fin)).tolist()
+        grad_watch = self.grad_watch() if watch else None
+        metrics = self.update(traj, entropy_coef, watch=grad_watch)
+        host = torch.cat([torch.stack(list(metrics.values())), fin.reshape(-1)]).tolist()
+        layer_grad_norms = grad_watch.fetch() if watch else None
         learn_time = time.perf_counter() - t1
         metrics_host = dict(zip(metrics, host))
-        fin_rew, fin_len, fin_cnt = host[len(metrics):]
+        fin_host = host[len(metrics):]
+        block_rewards = None
+        if cfg.fin_blocks:
+            k = cfg.fin_blocks
+            rew, cnt = fin_host[:k], fin_host[2 * k:]
+            block_rewards = [r / c if c else None for r, c in zip(rew, cnt)]
+            fin_host = [sum(fin_host[i * k:(i + 1) * k]) for i in range(3)]
+        fin_rew, fin_len, fin_cnt = fin_host
         total_steps = cfg.n_steps * cfg.num_envs
         return TrainingMetrics(
             mean_reward=fin_rew / fin_cnt if fin_cnt else 0.0,
@@ -404,4 +545,22 @@ class PPOLearner:
             fps=total_steps / rollout_time if rollout_time > 0 else 0.0,
             rollout_time=rollout_time,
             learn_time=learn_time,
+            layer_grad_norms=layer_grad_norms,
+            block_rewards=block_rewards,
         )
+
+    @torch.no_grad()
+    def param_stats(self, histogram_bins: int = 0) -> dict:
+        """``parameters/<leaf>/norm`` for every parameter and, with
+        ``histogram_bins`` > 0, ``parameters/<leaf>/hist`` (``jnp.histogram``
+        of its values): the parameter half of the watch."""
+        params = [p.detach().to(torch.float32) for p in self.optimizer.params]
+        names = self.leaf_names()
+        norms = torch.stack(torch._foreach_norm(params)).tolist()
+        out = {f"parameters/{name}/norm": v for name, v in zip(names, norms)}
+        if histogram_bins:
+            for name, p in zip(names, params):
+                counts, edges = histogram(p.reshape(-1), histogram_bins)
+                out[f"parameters/{name}/hist"] = {"_type": "histogram", "counts": counts,
+                                                  "edges": edges}
+        return out

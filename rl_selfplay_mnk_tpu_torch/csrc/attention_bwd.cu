@@ -63,18 +63,27 @@
 // against 0.78 this way; dQ, dK and dV feed only the outputs' rounding and
 // stay chained.
 //
-// Where a head has at most 16 channels (kDK = 1, chosen at compile time),
-// S in pass 1 and S^T and dP^T in pass 2 are summed a depth pair at a time
-// instead (mma_pairs, the fold core's sum, close to the plain version's
-// sequential f32 sum); the instantiations for wider heads are unchanged.
-// As one truncated product a tile, pass 2's put dv at 1.01 of the limit at
-// the 9x9 update's minibatch (8192, 81, 4, 14), and pass 1's S put dq at
-// 1.05 of it, from the plain version and from the f64 computation, at one
-// input at (2048, 169, 8, 12) (utils/attn_bwd_study.py --numerics --seeds,
-// NVIDIA H100 80GB HBM3, 700 W). Pairing pass 1's dP as well moved no
-// share across the limit and cost as much time again as S's pairs. The
-// pairs take 1.9x the time of one product a tile at (8192, 81, 4, 14), 2.0x
-// at (2048, 169, 8, 12).
+// Some sums go a depth pair at a time instead (mma_pairs, the fold core's
+// sum, close to the plain version's sequential f32 sum), chosen at compile
+// time (kPairS, kPairT): pass 1's S where a head has at most 32 channels
+// (kDK <= 2), pass 2's S^T and dP^T where it has at most 16 (kDK = 1); the
+// instantiations for heads of 64 are unchanged. Measured with
+// utils/attn_bwd_study.py --numerics --seeds 0 ... 9 (NVIDIA H100 80GB HBM3,
+// 700 W), as shares of chip_smoke.py's bf16 limit from the plain version and
+// from the f64 computation:
+//   * Dh <= 16: as one truncated product a tile, pass 2's put dv at 1.01 at
+//     the 9x9 update's minibatch (8192, 81, 4, 14), and pass 1's S put dq at
+//     1.05 at one input at (2048, 169, 8, 12). Pairing pass 1's dP as well
+//     moved no share across the limit and cost as much time again as S's
+//     pairs. The pairs take 1.9x the time of one product a tile at
+//     (8192, 81, 4, 14), 2.0x at (2048, 169, 8, 12).
+//   * Dh = 32: pass 1's S as one product a 16-channel step put dq at 1.54
+//     (from both) at (384, 81, 3, 32), seed 2; paired, 0.67 at worst over
+//     the ten seeds. Pairing pass 2 too gave dk 0.63 and left dv where it
+//     was (1.04 at the seed where the plain version is 1.03 from f64, 0.78
+//     from f64); pairing pass 1's dP too put dq at 0.82. S's pairs take
+//     1.5x the time there (0.0497 -> 0.0745 ms).
+//   * Dh = 64: at most 1.00 from the plain version and 0.97 from f64.
 //
 // Padding: key columns >= L are masked to p = 0 in pass 1; query rows >= L
 // (q and dO zero) give dP = 0 and row = 0, so their dS is 0 and their
@@ -100,16 +109,22 @@ __host__ __device__ inline size_t packed_bwd_mma_smem_bytes(int L, int dh, int h
               + 3 * rows * sizeof(float));
 }
 
-// S (pass 1), S^T or dP^T (pass 2) over one 16-channel tile kk: where the
-// head has at most 16 channels (one tile, kDK = 1) a depth pair at a time
-// (mma_pairs), else one 16-deep product added in f32 past the first
-// (mma_chained).
-template <int kDK>
+// S (pass 1), S^T or dP^T (pass 2) over one 16-channel tile kk: a depth pair
+// at a time where kPairs (mma_pairs), else one 16-deep product added in f32
+// past the first (mma_chained).
+template <bool kPairs>
 __device__ __forceinline__ void channel_step(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                              uint32_t b1, int kk, int dh) {
-    if constexpr (kDK == 1) mma_pairs(d, a, b0, b1, 16 * kk, dh, kk == 0);
+    if constexpr (kPairs) mma_pairs(d, a, b0, b1, 16 * kk, dh, kk == 0);
     else mma_chained(d, a, b0, b1, kk);
 }
+
+// Which sums go a depth pair at a time: pass 1's S where a head has at most
+// 32 channels (kDK <= 2), pass 2's S^T and dP^T where it has at most 16.
+template <int kDK>
+constexpr bool kPairS = kDK <= 2;
+template <int kDK>
+constexpr bool kPairT = kDK == 1;
 
 template <int kKT, int kDK>
 __global__ void __launch_bounds__(kMmaWarps * 32, kBwdMinBlocks<kKT, kDK>) attn_packed_bwd_mma(
@@ -172,8 +187,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kBwdMinBlocks<kKT, kDK>) attn_
                 for (int kk = 0; kk < kDK; ++kk) {
                     uint32_t b[4];
                     ldmatrix_x4(b, ks_at + ((jt * 16 + across * 8 + r8) * kLd + kk * 16 + down * 8) * 2);
-                    channel_step<kDK>(s[2 * jt], qa[kk], b[0], b[1], kk, dh);
-                    channel_step<kDK>(s[2 * jt + 1], qa[kk], b[2], b[3], kk, dh);
+                    channel_step<kPairS<kDK>>(s[2 * jt], qa[kk], b[0], b[1], kk, dh);
+                    channel_step<kPairS<kDK>>(s[2 * jt + 1], qa[kk], b[2], b[3], kk, dh);
                 }
             }
         }
@@ -323,11 +338,11 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kBwdMinBlocks<kKT, kDK>) attn_
                 const uint32_t at = ((it * 16 + across * 8 + r8) * kLd + kk * 16 + down * 8) * 2;
                 uint32_t b[4];
                 ldmatrix_x4(b, qs_at + at);
-                channel_step<kDK>(sT[0], ka[kk], b[0], b[1], kk, dh);
-                channel_step<kDK>(sT[1], ka[kk], b[2], b[3], kk, dh);
+                channel_step<kPairT<kDK>>(sT[0], ka[kk], b[0], b[1], kk, dh);
+                channel_step<kPairT<kDK>>(sT[1], ka[kk], b[2], b[3], kk, dh);
                 ldmatrix_x4(b, gs_at + at);
-                channel_step<kDK>(dpT[0], va[kk], b[0], b[1], kk, dh);
-                channel_step<kDK>(dpT[1], va[kk], b[2], b[3], kk, dh);
+                channel_step<kPairT<kDK>>(dpT[0], va[kk], b[0], b[1], kk, dh);
+                channel_step<kPairT<kDK>>(dpT[1], va[kk], b[2], b[3], kk, dh);
             }
             // p and ds of (key g or g + 8, query 16 it + 8 n + tc + c), then
             // round(P)^T and dS^T as A fragments (rows j, depth i).

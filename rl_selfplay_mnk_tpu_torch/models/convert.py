@@ -178,27 +178,46 @@ def _indices(state_dict, pattern: str) -> set:
     return {int(m.group(1)) for k in state_dict if (m := re.match(pattern, k))}
 
 
+def _port_layers(names) -> Iterator[Tuple[tuple, str, str]]:
+    """The layer table of the model whose state_dict (or parameter) names
+    are ``names``."""
+    if "embed.cell_embed.weight" in names:
+        return _transformer_layers(
+            len(_indices(names, r"layers\.(\d+)\.")),
+            gated="layers.0.gate1.weight" in names,
+            has_ffn="layers.0.dense1.weight" in names,
+        )
+    if "conv_in.weight" in names:
+        return _resnet_layers(len(_indices(names, r"blocks\.(\d+)\.")))
+    if "dense.weight" in names:
+        return _mlp_layers()
+    return _cnn_layers(len(_indices(names, r"convs\.(\d+)\.")))
+
+
+def flax_param_paths(names) -> Dict[str, str]:
+    """torch parameter name -> the '/'-joined path of the same leaf in the
+    JAX package's ``params`` tree (``Conv_0/kernel``, ``pos_embed``...), for
+    the parameter names of any registry model. Each leaf holds the same
+    numbers on both sides, laid out differently."""
+    names = list(names)
+    paths = {"embed.pos_embed": "pos_embed"} if "embed.pos_embed" in names else {}
+    for path, module_path, kind in _port_layers(names):
+        for flax_leaf, torch_leaf in _LEAVES[kind]:
+            paths[f"{module_path}.{torch_leaf}"] = "/".join(path + (flax_leaf,))
+    return paths
+
+
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None) -> dict:
     """The port's state_dict (any registry model) -> JAX variables. A
     transformer needs ``num_heads`` (the model's ``num_heads``): the merged
     projection weights do not tell how many heads they hold."""
     params: dict = {}
     stats: dict = {}
+    layers = _port_layers(state_dict)
     if "embed.cell_embed.weight" in state_dict:
         if num_heads is None:
             raise ValueError("state_dict_to_flax: a transformer state_dict needs num_heads")
-        layers = _transformer_layers(
-            len(_indices(state_dict, r"layers\.(\d+)\.")),
-            gated="layers.0.gate1.weight" in state_dict,
-            has_ffn="layers.0.dense1.weight" in state_dict,
-        )
         params["pos_embed"] = _to_flax(state_dict["embed.pos_embed"], "pos_embed", "param")
-    elif "conv_in.weight" in state_dict:
-        layers = _resnet_layers(len(_indices(state_dict, r"blocks\.(\d+)\.")))
-    elif "dense.weight" in state_dict:
-        layers = _mlp_layers()
-    else:
-        layers = _cnn_layers(len(_indices(state_dict, r"convs\.(\d+)\.")))
     for path, module_path, kind in layers:
         for flax_leaf, torch_leaf in _LEAVES[kind]:
             value = state_dict[f"{module_path}.{torch_leaf}"]

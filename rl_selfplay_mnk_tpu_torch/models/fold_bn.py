@@ -17,6 +17,8 @@ as it is.
 ``snapshot`` is what the trainer takes of the learner for an opponent, a
 pool entry or the benchmark: the folded copy for a model with BatchNorm, a
 frozen deep copy for one without (the transformer families, ``mlp_tiny``).
+``snapshot_from_state_dict`` rebuilds one from its ``state_dict()``, as a
+checkpoint keeps it.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ def fold_batchnorm(model):
         bn.bias.zero_()
         bn.running_mean.zero_()
         bn.running_var.fill_(1.0 - bn.eps)
+    return _mark_folded(folded)
+
+
+def _mark_folded(folded):
+    """Freeze a model whose convs hold the fold, mark it ``folded`` and give
+    a ResNet's residual blocks their kernel weights."""
     dt = folded.dtype
     for blk in getattr(folded, "blocks", ()):  # a ResNet's residual blocks
         blk.kernel_weights = (
@@ -57,3 +65,14 @@ def snapshot(model):
     if hasattr(model, "conv_bn_pairs"):
         return fold_batchnorm(model)
     return copy.deepcopy(model).requires_grad_(False)
+
+
+@torch.no_grad()
+def snapshot_from_state_dict(model, state_dict):
+    """The snapshot whose ``state_dict()`` was ``state_dict``, rebuilt in
+    ``model`` (a fresh model of the same architecture): the same weights,
+    bit for bit, frozen, and folded where the model has BatchNorm."""
+    model.load_state_dict(state_dict)
+    if hasattr(model, "conv_bn_pairs"):
+        return _mark_folded(model)
+    return model.requires_grad_(False)

@@ -1,5 +1,6 @@
 from .opponent_pool import OpponentPool
-from .policies import NNPolicy, Policy, RandomPolicy, make_network_policy
+from .league import League, pfsp_weight
+from .policies import BlockPolicy, NNPolicy, Policy, RandomPolicy, make_block_policy, make_network_policy
 from .validation import validate
 from .wrapper import (
     SelfPlayState,
@@ -14,6 +15,8 @@ __all__ = [
     "RandomPolicy",
     "NNPolicy",
     "make_network_policy",
+    "BlockPolicy",
+    "make_block_policy",
     "SelfPlayState",
     "flip_channels",
     "canonical_obs",
@@ -21,4 +24,6 @@ __all__ = [
     "selfplay_step",
     "validate",
     "OpponentPool",
+    "League",
+    "pfsp_weight",
 ]

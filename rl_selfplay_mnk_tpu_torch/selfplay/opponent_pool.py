@@ -1,8 +1,9 @@
 """Host opponent pool: FIFO eviction + uniform sampling.
 
 Counterpart of the JAX package's host ``OpponentPool`` (its device-resident
-``DevicePool`` and the league are not ported yet). Members are whatever the
-caller stores; the trainer stores BatchNorm-folded model snapshots.
+``DevicePool`` is not ported yet; the league is ``selfplay/league.py``).
+Members are whatever the caller stores; the trainer stores BatchNorm-folded
+model snapshots.
 
   * ``weighted=True``: sampling proportional to each member's weight;
   * ``eviction="adaptive"``: once full, evict the LOWEST-weight member

@@ -5,7 +5,9 @@ signature is ``apply(params, obs, generator, deterministic) -> actions``
 with ``obs = {"observation": (E, 2, M, N) f32, "action_mask": (E, A) bool}``
 and int64 actions. A network policy's params are a frozen snapshot of a
 model (``models.fold_bn.snapshot``: BatchNorm folded where the model has
-it, a plain copy for a transformer); its forward is eval mode.
+it, a plain copy for a transformer); its forward is eval mode. A block
+policy's params are K snapshots, each playing one contiguous block of the
+env batch (``make_block_pooled_policy`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -61,3 +63,37 @@ def NNPolicy(network_apply: Callable, model, generator: Optional[torch.Generator
     """Policy over a network. Pass a snapshot: a model with BatchNorm that
     is not folded yet folds anew on every eval forward."""
     return Policy(apply=make_network_policy(network_apply), params=model, generator=generator)
+
+
+@functools.lru_cache(maxsize=None)
+def make_block_policy(network_apply: Callable, num_blocks: int) -> Callable:
+    """Lift ``network_apply`` into an act function over ``num_blocks``
+    snapshots: block i of the env batch, envs [i E / K, (i + 1) E / K),
+    plays snapshot i in one eval forward of E / K boards; the masked logits
+    are put back in env order and one sample (or argmax) is drawn over the
+    whole batch. ``noise`` injects the sample's (E, A) uniforms."""
+
+    def act(params, obs, generator=None, deterministic=False, noise=None):
+        observation, mask = obs["observation"], obs["action_mask"]
+        e = observation.shape[0]
+        if len(params) != num_blocks or e % num_blocks:
+            raise ValueError(f"{e} envs do not split into {num_blocks} blocks over "
+                             f"{len(params)} opponents")
+        per = e // num_blocks
+        logits = torch.cat([
+            mask_logits(network_apply(model, observation[i * per:(i + 1) * per],
+                                      mask[i * per:(i + 1) * per])[0],
+                        mask[i * per:(i + 1) * per])
+            for i, model in enumerate(params)
+        ])
+        if deterministic:
+            return masked_argmax(logits)
+        return masked_sample(logits, generator, noise)
+
+    return act
+
+
+def BlockPolicy(network_apply: Callable, models, generator: Optional[torch.Generator] = None) -> Policy:
+    """K snapshots, each playing its own block of the env batch."""
+    return Policy(apply=make_block_policy(network_apply, len(models)), params=list(models),
+                  generator=generator)

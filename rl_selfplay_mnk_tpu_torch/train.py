@@ -1,11 +1,23 @@
 """Self-play PPO training loop (counterpart of the JAX package's
-``train.py``, single-device and non-league path).
+``train.py``, its single-device host loop).
 
   * opponent schedule: 15% a historical snapshot from the pool, 85% the
     current network, drawn from a host ``random.Random(seed)``; every
     opponent is a frozen snapshot (``models.fold_bn.snapshot``: BatchNorm
-    folded where the model has it), taken once when it is drawn;
-  * a pool insert every 20 iterations, FIFO eviction;
+    folded where the model has it), taken once when it is drawn; with
+    ``opponents_per_iteration`` K > 1 one draw for each of K blocks of the
+    env batch (``selfplay.policies.BlockPolicy``);
+  * a pool insert every 20 iterations, FIFO eviction (``pool_eviction``
+    "adaptive": the lowest weight; ``pool_weighted``: draws by weight); or,
+    with ``matchmaking``, a ``selfplay.league.League`` whose members are
+    scored on the episodes played against them (per block with K > 1);
+  * every ``watch_interval`` iterations the watch record: per-leaf gradient
+    RMS norms and signed-log histograms over the iteration's updates, and
+    the parameters' norms (and 16-bin histograms with ``watch_histograms``);
+  * every ``checkpoint_interval`` iterations a checkpoint of the whole
+    train state (``utils/checkpoint.py``); ``resume`` continues from the
+    newest one with the draws of the run that wrote it, and drops the
+    records that run logged past it;
   * validation against the benchmark every ``validation_interval``
     iterations; the benchmark (first the untrained network) is replaced by
     a new snapshot when the score rate exceeds 0.60; the learner is
@@ -20,6 +32,8 @@ Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.train --total-steps 589824 --device cuda
     python -m rl_selfplay_mnk_tpu_torch.train --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
+    python -m rl_selfplay_mnk_tpu_torch.train --run-name r1 --checkpoint-interval 10 [--resume]
+    python -m rl_selfplay_mnk_tpu_torch.train --matchmaking pfsp_even --watch-interval 5
 
 ``--arch`` also sets the family's learning rate and entropy schedule
 (``apply_family_hparams``). On the command line, and only there, ``--mnk 13
@@ -31,7 +45,7 @@ first), so the second line is the JAX package's full 13x13 recipe.
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import os
 import random as _random
 import traceback
 from typing import Any, Dict, Optional
@@ -40,13 +54,16 @@ import torch
 
 from .alg.ppo import PPOConfig, PPOLearner, PPOOptimizer, TrainingMetrics, pick_group_size
 from .alg.schedules import entropy_coef_at, make_lr_schedule
-from .env.mnk_env import EnvConfig
-from .models.fold_bn import snapshot
+from .env.mnk_env import EnvConfig, EnvState
+from .models.fold_bn import snapshot, snapshot_from_state_dict
 from .ops.cuda_build import KernelError
 from .models.registry import create_model_from_architecture, eval_apply, init_network
+from .selfplay.league import MATCHMAKING_MODES, League
 from .selfplay.opponent_pool import OpponentPool
-from .selfplay.policies import NNPolicy
+from .selfplay.policies import BlockPolicy, NNPolicy
 from .selfplay.validation import validate
+from .selfplay.wrapper import SelfPlayState
+from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.hardware import HardwareConfig, detect_hardware_config
 from .utils.metrics import MetricsLogger
 from .utils.model_export import ModelExporter
@@ -84,6 +101,14 @@ def get_default_config() -> Dict[str, Any]:
         "seed": 0,
         "pool_weighted": False,
         "pool_eviction": "fifo",
+        "checkpoint_interval": 0,  # iterations; 0 = none
+        "checkpoint_dir": None,  # None = checkpoints/<run_name>
+        "resume": False,
+        "matchmaking": None,  # None = the pool; or one of MATCHMAKING_MODES
+        "opponents_per_iteration": 1,
+        "watch_interval": 20,  # iterations; 0 = no watch record
+        "watch_histograms": False,  # 16-bin parameter histograms in it
+        "watch_grad_hist_bins": 6,  # signed-log gradient bins a sign; 0 = none
         "device": None,  # None = cuda
     }
 
@@ -144,6 +169,7 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
     # Initialise on the CPU from the seed, so both devices start alike.
     init_network(module, torch.Generator().manual_seed(config["seed"]))
     module.to(hw.device)
+    blocks = int(config.get("opponents_per_iteration", 1))
 
     shuffle = config.get("shuffle", "auto")
     if shuffle == "auto":
@@ -159,6 +185,8 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
         batch_size=config["batch_size"],
         shuffle=shuffle,
         group_size=pick_group_size(config["batch_size"]),
+        watch_hist_bins=config.get("watch_grad_hist_bins", 0),
+        fin_blocks=blocks if blocks > 1 else 0,
     )
     lr_schedule = make_lr_schedule(
         base_lr=config["learning_rate"],
@@ -180,9 +208,14 @@ def train_mnk(
     logger: Optional[MetricsLogger] = None,
     device: Optional[str] = None,
 ) -> Dict[str, Any]:
-    """The training loop. Returns a summary: per-iteration metrics, the
-    validation results, the errors that the loop logged and skipped, the
-    directory of the exports (``export_dir``) and the trained ``model``."""
+    """The training loop. Returns a summary: per-iteration metrics and
+    opponent sources, the validation results, the errors that the loop
+    logged and skipped, the iteration it started at (past 0 when resumed),
+    the directory of the exports (``export_dir``) and the trained
+    ``model``."""
+    k_opponents = int(config.get("opponents_per_iteration", 1))
+    if config["num_envs"] % k_opponents:
+        raise ValueError(f"{config['num_envs']} envs do not split into {k_opponents} opponent blocks")
     hw = detect_hardware_config(device or config.get("device"))
     own_logger = logger is None
     if own_logger:
@@ -198,12 +231,16 @@ def train_mnk(
     # the same snapshot. Opponents only run eval forwards, so all are frozen
     # snapshots (BatchNorm folded where there is any).
     benchmark = snapshot(learner.model)
-    pool = OpponentPool(
-        max_size=config["opponent_pool"],
-        seed=config["seed"],
-        weighted=config.get("pool_weighted", False),
-        eviction=config.get("pool_eviction", "fifo"),
-    )
+    matchmaking = config.get("matchmaking")
+    if matchmaking:
+        pool = League(max_size=config["opponent_pool"], mode=matchmaking, seed=config["seed"])
+    else:
+        pool = OpponentPool(
+            max_size=config["opponent_pool"],
+            seed=config["seed"],
+            weighted=config.get("pool_weighted", False),
+            eviction=config.get("pool_eviction", "fifo"),
+        )
     pool.add_opponent(benchmark)
     last_score_rate = 1.0
 
@@ -211,29 +248,90 @@ def train_mnk(
     total_iterations = config["total_environment_steps"] // steps_per_iteration
     host_rng = _random.Random(config["seed"])
     learner.reset_envs(network_policy(benchmark))
-    summary: Dict[str, Any] = {"iterations": [], "validations": [], "errors": [],
+    ckpt_dir = config.get("checkpoint_dir") or os.path.join(
+        "checkpoints", config.get("run_name") or logger.run_name)
+    ckpt_interval = config.get("checkpoint_interval", 0)
+    watch_interval = config.get("watch_interval", 0)
+
+    start_iteration = 0
+    if config.get("resume"):
+        state, _ = restore_checkpoint(ckpt_dir)
+        if state is None:
+            print(f"No checkpoint under {ckpt_dir}: starting at iteration 0")
+        else:
+            m, n, _ = config["mnk"]
+
+            def rebuild(state_dict):
+                model, _ = create_model_from_architecture(
+                    config["architecture_name"], (2, m, n), m * n, dtype=hw.compute_dtype)
+                return snapshot_from_state_dict(model.to(hw.device), state_dict)
+
+            # After reset_envs, which drew from both generators: the restored
+            # states carry on where the checkpointed run was.
+            benchmark, last_score_rate = restore_train_state(
+                state, learner, pool, host_rng, policy_generator, rebuild)
+            start_iteration = state["iteration"] + 1
+            dropped = logger.drop_after(state["env_steps"])
+            print(f"Resumed from checkpoint at iteration {start_iteration} "
+                  f"({dropped} records past it dropped from {logger.jsonl_path})")
+
+    summary: Dict[str, Any] = {"iterations": [], "opponent_sources": [], "validations": [],
+                               "errors": [], "start_iteration": start_iteration,
                                "jsonl_path": logger.jsonl_path,
                                "export_dir": exporter.export_dir}
 
     print(f"Starting training for {total_iterations} iterations")
-    current_env_steps = 0
-    for i in range(total_iterations):
+    current_env_steps = start_iteration * steps_per_iteration
+    for i in range(start_iteration, total_iterations):
         try:
-            if host_rng.random() < 0.15:
-                opponent, source = pool.get_random_opponent(), "historical"
-            else:
-                opponent, source = snapshot(learner.model), "current_agent"
+            # Per opponent block: 15% a pool member, 85% the current network.
+            def draw_opponent():
+                if host_rng.random() < 0.15:
+                    if matchmaking:
+                        entry_id, member = pool.get_opponent()
+                        return member, "historical", entry_id
+                    return pool.get_random_opponent(), "historical", None
+                return None, "current_agent", None
+
+            draws = [draw_opponent() for _ in range(k_opponents)]
+            current = snapshot(learner.model) if any(d[0] is None for d in draws) else None
+            opponents = [current if d[0] is None else d[0] for d in draws]
+            block_ids = [d[2] for d in draws]  # the league member playing each block
+            drawn_ids = [x for x in block_ids if x is not None]
+            source = ",".join(d[1] for d in draws)
             logger.log({"training/opponent_source": source}, step=(i + 1) * steps_per_iteration)
+            opponent = (BlockPolicy(eval_apply, opponents, policy_generator) if k_opponents > 1
+                        else network_policy(opponents[0]))
 
             ent_coef = entropy_coef_at(
                 config["entropy_coef"], config["entropy_coef_schedule"], i,
                 config["num_envs"], config["n_steps"],
             )
-            metrics = learner.learn(network_policy(opponent), ent_coef)
+            watch_now = bool(watch_interval) and i % watch_interval == 0
+            metrics = learner.learn(opponent, ent_coef, watch=watch_now)
             current_env_steps = (i + 1) * steps_per_iteration
+
+            # The league scores each drawn member on the episodes played
+            # against it: its own block's with K > 1 (nothing for a block that
+            # finished none), else the iteration's.
+            if matchmaking and drawn_ids:
+                if metrics.block_rewards is not None:
+                    for entry_id, reward in zip(block_ids, metrics.block_rewards):
+                        if entry_id is not None and reward is not None:
+                            pool.record_result(entry_id, (reward + 1.0) / 2.0)
+                else:
+                    for entry_id in drawn_ids:
+                        pool.record_result(entry_id, (metrics.mean_reward + 1.0) / 2.0)
+
             current_lr = lr_schedule((i + 1) * learner.config.updates_per_iteration - 1)
             log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr)
-            summary["iterations"].append(dataclasses.asdict(metrics))
+            summary["iterations"].append(metrics.scalars())
+            summary["opponent_sources"].append(source)
+
+            if watch_now:
+                record = dict(metrics.layer_grad_norms)
+                record.update(learner.param_stats(16 if config.get("watch_histograms") else 0))
+                logger.log(record, step=current_env_steps)
 
             if i % 20 == 0:
                 pool.add_opponent(snapshot(learner.model), weight=last_score_rate)
@@ -270,6 +368,11 @@ def train_mnk(
                                       is_benchmark_breaker=promoted)
                 if promoted:
                     logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
+
+            if ckpt_interval and i > 0 and i % ckpt_interval == 0:
+                save_checkpoint(ckpt_dir, i, checkpoint_state(
+                    learner, benchmark, pool, host_rng, policy_generator, last_score_rate, i,
+                    current_env_steps))
         except KernelError:
             raise
         except Exception as e:  # log and continue, as the JAX trainer does
@@ -282,6 +385,81 @@ def train_mnk(
         logger.finish()
     summary["model"] = learner.model
     return summary
+
+
+def checkpoint_state(learner: PPOLearner, benchmark, pool, host_rng: _random.Random,
+                     policy_generator: torch.Generator, last_score_rate: float,
+                     iteration: int, env_steps: int) -> Dict[str, Any]:
+    """The whole train state after ``iteration`` (the JAX checkpoint's keys
+    and the port's generators): snapshots as state_dicts, the self-play
+    state as tensors, random states as plain values."""
+    if isinstance(pool, League):
+        members = [{"model": e.params.state_dict(), "weight": e.score_ema, "id": e.entry_id,
+                    "games": e.games} for e in pool.entries]
+        next_id = pool._next_id
+    else:
+        members = [{"model": model.state_dict(), "weight": w}
+                   for model, w in zip(pool.pool, pool.weights)]
+        next_id = 0
+    sp = learner._sp_state
+    return {
+        "model": learner.model.state_dict(),
+        "optimizer": learner.optimizer.adamw.state_dict(),
+        "optimizer_count": learner.optimizer.count,
+        "benchmark": benchmark.state_dict(),
+        "pool": members,
+        "pool_next_id": next_id,
+        "host_rng_state": host_rng.getstate(),
+        "pool_rng_state": pool._rng.getstate(),
+        "last_score_rate": float(last_score_rate),
+        "sp_state": {"env": sp.env._asdict(), "agent_side": sp.agent_side,
+                     "pending_resets": sp.pending_resets},
+        "obs": learner._obs,
+        "ep_rew": learner._ep_rew,
+        "ep_len": learner._ep_len,
+        "generator": learner.generator.get_state(),
+        "policy_generator": policy_generator.get_state(),
+        "iteration": iteration,
+        "env_steps": env_steps,
+    }
+
+
+def restore_train_state(state: Dict[str, Any], learner: PPOLearner, pool, host_rng: _random.Random,
+                        policy_generator: torch.Generator, rebuild):
+    """Put ``checkpoint_state``'s ``state`` back; ``rebuild(state_dict)``
+    makes a snapshot. Returns (benchmark, last_score_rate)."""
+    dev = learner.device
+
+    def on_device(tree):
+        return {k: None if v is None else v.to(dev) for k, v in tree.items()}
+
+    learner.model.load_state_dict(state["model"])
+    learner.optimizer.adamw.load_state_dict(state["optimizer"])
+    learner.optimizer.count = state["optimizer_count"]
+    if isinstance(pool, League):
+        pool.entries.clear()
+        for member in state["pool"]:
+            pool.add_opponent(rebuild(member["model"]))
+            entry = pool.entries[-1]
+            entry.entry_id, entry.score_ema, entry.games = member["id"], member["weight"], member["games"]
+        pool._next_id = state["pool_next_id"]
+    else:
+        pool.pool.clear()
+        pool.weights.clear()
+        for member in state["pool"]:
+            pool.add_opponent(rebuild(member["model"]), weight=member["weight"])
+    host_rng.setstate(state["host_rng_state"])
+    pool._rng.setstate(state["pool_rng_state"])
+    sp = state["sp_state"]
+    learner._sp_state = SelfPlayState(env=EnvState(**on_device(sp["env"])),
+                                      agent_side=sp["agent_side"].to(dev),
+                                      pending_resets=sp["pending_resets"].to(dev))
+    learner._obs = on_device(state["obs"])
+    learner._ep_rew = state["ep_rew"].to(dev)
+    learner._ep_len = state["ep_len"].to(dev)
+    learner.generator.set_state(state["generator"])
+    policy_generator.set_state(state["policy_generator"])
+    return rebuild(state["benchmark"]), state["last_score_rate"]
 
 
 def log_training_metrics(
@@ -355,6 +533,21 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     parser.add_argument("--export-dir", default=None,
                         help="exports go to <dir>/<run>/ (default: models)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the newest checkpoint of the run")
+    parser.add_argument("--checkpoint-interval", type=int, default=None,
+                        help="checkpoint the train state every N iterations (0 = never)")
+    parser.add_argument("--matchmaking", choices=MATCHMAKING_MODES, default=None,
+                        help="league matchmaking over the opponent pool (selfplay/league.py)")
+    parser.add_argument("--pool-eviction", choices=["fifo", "adaptive"], default=None,
+                        help="once the pool is full: fifo = drop the oldest, adaptive = "
+                        "drop the lowest weight")
+    parser.add_argument("--pool-weighted", action="store_true",
+                        help="draw pool members by their score rate at insertion")
+    parser.add_argument("--watch-interval", type=int, default=None,
+                        help="log gradient and parameter norms every N iterations (0 = never)")
+    parser.add_argument("--watch-histograms", action="store_true",
+                        help="also log 16-bin parameter histograms at the watch cadence")
     args = parser.parse_args(argv)
 
     config = build_config(args.arch, args.mnk, args.batch_size)
@@ -370,12 +563,27 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     if args.export_dir:
         config["export_dir"] = args.export_dir
     config["device"] = args.device
+    if args.resume:
+        config["resume"] = True
+    if args.checkpoint_interval is not None:
+        config["checkpoint_interval"] = args.checkpoint_interval
+    if args.matchmaking:
+        config["matchmaking"] = args.matchmaking
+    if args.pool_eviction is not None:
+        config["pool_eviction"] = args.pool_eviction
+    if args.pool_weighted:
+        config["pool_weighted"] = True
+    if args.watch_interval is not None:
+        config["watch_interval"] = args.watch_interval
+    if args.watch_histograms:
+        config["watch_histograms"] = True
     return config
 
 
 def main(argv=None) -> None:
     config = config_from_args(argv)
-    with MetricsLogger(run_name=config["run_name"], config=config) as logger:
+    with MetricsLogger(run_name=config["run_name"], config=config, group="main_run_small_board",
+                       tags=["main_experiment"]) as logger:
         train_mnk(config, logger)
 
 

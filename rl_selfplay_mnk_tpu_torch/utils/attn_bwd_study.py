@@ -23,8 +23,8 @@ worst share of the limit over those seeds for dq, dk and dv, against the
 plain version and against the f64 computation.
 
 ``--phases``: each kernel's time at its update minibatch and at 384 boards
-(K9 at (B, 169, 2, 64) and at the two minibatches with heads below 16
-channels, K4 and K7 at (B, 81, 4, 14)), whole and with its
+(K9 at (B, 169, 2, 64), at (384, 81, 3, 32) and at the two minibatches with
+heads below 16 channels, K4 and K7 at (B, 81, 4, 14)), whole and with its
 first pass, its second pass or both compiled out (patched copies of
 ``csrc/`` built under ``_build/study/``): staging and storing alone, and
 what each pass adds. For K7 also with its on-chip transpose compiled out,
@@ -59,7 +59,7 @@ K7_TRANSPOSE = ("for (int t = 0; t < 4; ++t) transpose_slab<kTokens>(rows + t * 
 # of csrc/ builds one source, so it changes one kernel.
 PHASE_KERNELS = {
     "packed_bwd": ("attention_bwd", "attention_bwd.cu", 5,
-                   SHAPES[:2] + ((8192, 81, 4, 14), (2048, 169, 8, 12))),
+                   SHAPES[:2] + ((384, 81, 3, 32), (8192, 81, 4, 14), (2048, 169, 8, 12))),
     "folded_bwd": ("attention_folded_bwd", "attn_mma.cuh", 4,
                    ((8192, 81, 4, 14), (384, 81, 4, 14))),
     "infold_bwd": ("attention_board", "attn_mma.cuh", 5, ((8192, 81, 4, 14), (384, 81, 4, 14))),

@@ -7,9 +7,11 @@ the routes ``tiny_head_attention`` lets a caller force, as chip_smoke.py's
 path C does) for ``--warmup`` iterations, then traces one more
 iteration with ``torch.profiler`` and prints: the wall time of the rollout
 and the update, the device's busy time (sum of kernel times; one stream, so
-no overlap) and idle share for each, the launches of the port's CUDA
-kernels, and the kernels that take the most device time. The last line is
-one JSON object with those numbers.
+no overlap) and idle share for each, the kernel launches (for the update
+also a minibatch's share), the launches of the port's CUDA kernels, and the
+kernels that take the most device time. ``--watch`` traces a watch
+iteration's update, which also gathers the gradient statistics. The last
+line is one JSON object with those numbers.
 
 ``--tournament A B`` traces instead one half-pairing of a tournament
 (``play_batch_games`` between the exports A and B, ``--games`` boards, after
@@ -19,7 +21,7 @@ step and the bookkeeping, and ends in one host synchronisation.
 
 Usage::
 
-    python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json]
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json] [--watch]
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_c_s --route infold
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
@@ -112,7 +114,7 @@ def forced_route(arch: str, route: str | None):
 
 def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
                       arch: str | None = None, mnk=None, batch_size: int | None = None,
-                      route: str | None = None) -> dict:
+                      route: str | None = None, watch: bool = False) -> dict:
     hw = detect_hardware_config("cuda")
     config = build_config(arch, mnk, batch_size)
     with forced_route(config["architecture_name"], route):
@@ -135,7 +137,7 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
             if phase == "rollout":
                 traj, _ = learner.rollout(opponent)
             else:
-                learner.update(traj, ent)
+                learner.update(traj, ent, watch=learner.grad_watch() if watch else None)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if trace:
@@ -144,6 +146,9 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
         busy = sum(t for t, _ in times.values()) / 1e6
         phases[phase] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
                          "kernel_launches": sum(c for _, c in times.values())}
+        if phase == "update":
+            phases[phase]["kernel_launches_per_minibatch"] = (
+                phases[phase]["kernel_launches"] / learner.config.updates_per_iteration)
         launches[phase] = read_launches()
         kernels[phase] = sorted(
             ({"name": k[:90], "device_ms": t / 1e3, "count": c} for k, (t, c) in times.items()),
@@ -157,7 +162,8 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
         for r in kernels[phase]:
             print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
     return {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
-            "route": route, "mnk": list(config["mnk"]), "batch_size": config["batch_size"],
+            "route": route, "watch": watch, "mnk": list(config["mnk"]),
+            "batch_size": config["batch_size"],
             "phases": phases,
             "port_kernel_launches": launches, "top_kernels": kernels}
 
@@ -218,6 +224,8 @@ def main(argv=None) -> None:
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--route", choices=("folded", "infold"), default=None,
                         help="force every attention of a transformer to this route")
+    parser.add_argument("--watch", action="store_true",
+                        help="trace a watch iteration's update (gradient statistics gathered)")
     parser.add_argument("--tournament", nargs=2, default=None, metavar=("A", "B"),
                         help="trace one half-pairing between these two exports instead")
     parser.add_argument("--games", type=int, default=16, help="boards of the half-pairing")
@@ -227,7 +235,8 @@ def main(argv=None) -> None:
                                               args.trace)))
         return
     print(json.dumps(profile_iteration(args.warmup, args.trace, arch=args.arch, mnk=args.mnk,
-                                       batch_size=args.batch_size, route=args.route)))
+                                       batch_size=args.batch_size, route=args.route,
+                                       watch=args.watch)))
 
 
 if __name__ == "__main__":

@@ -248,6 +248,44 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path, capsys,
         calls[entry]()
 
 
+@pytest.mark.parametrize("entry", ["train", "bench", "train_all", "train_all_13", "train_worker",
+                                   "train_short", "sweep"])
+def test_trainer_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    """The trainer's command line, the bench and the batch entries run on
+    the card unless ``--device cpu`` is given, and raise without CUDA. The
+    batch entries' ``train_mnk`` is replaced by its first step, the device's
+    resolution (their six full-size runs are no test); the trainer runs
+    zero iterations on 3x3x3, the bench one tiny iteration."""
+    from rl_selfplay_mnk_tpu_torch import bench, sweep, train, train_all, train_all_13, train_short, \
+        train_worker
+    from rl_selfplay_mnk_tpu_torch.utils.hardware import detect_hardware_config
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(train_all, "train_mnk",
+                        lambda config, logger=None: detect_hardware_config(config["device"]))
+
+    def on(dev):
+        return ["--device", *dev] if dev else []
+
+    tiny = ["--mnk", "3", "3", "3", "--num-envs", "8", "--batch-size", "32"]
+    calls = {
+        "train": lambda *dev: train.main(tiny + ["--total-steps", "8", "--run-name", "r",
+                                                 "--export-dir", str(tmp_path / "m"), *on(dev)]),
+        "bench": lambda *dev: bench.main(["--num-envs", "16", "--n-steps", "8", "--batch-size", "64",
+                                          "--iters", "1", "--warmup", "0", "--mnk", "3", "3", "3",
+                                          "--arch", "mlp_tiny", *on(dev)]),
+        "train_all": lambda *dev: train_all.main(on(dev)),
+        "train_all_13": lambda *dev: train_all_13.main(on(dev)),
+        "train_worker": lambda *dev: train_worker.main(["cnn_b_s", "13x13", *on(dev)]),
+        "train_short": lambda *dev: train_short.main(on(dev)),
+        "sweep": lambda *dev: sweep.main(["--trials", "1", *on(dev)]),
+    }
+    calls[entry]("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
 def test_count_params_is_the_one_entry_point_that_needs_no_card(monkeypatch):
     """``count_params`` is exempt from "the card unless the caller asks for
     the CPU": it runs no forward and no kernel, only reads the shapes of a
