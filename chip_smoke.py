@@ -61,7 +61,16 @@ Phases, in order; any failure exits non-zero:
    width, 9x9x5 ``resnet_b_s``, 8192 envs, batch 8192, cut to 32 steps, one
    warm-up and one timed iteration: its JSON line, a finite positive
    throughput, K1 and K2 launched and no attention kernel;
-11. the serving path, through ``compare_models.main`` and ``play.main``:
+11. the fused trainer (``train_fused.train_mnk_fused``): the default
+   config and path A's ``transformer_b_s``, 4 iterations each with a
+   validation after the third, by the ``step`` dispatch twice and by
+   ``scan`` (CUDA graphs); step against step for the determinism rule, scan
+   against step (the same bits where two step runs agree), K1 and K2 or
+   K1, K5 and the gradient pair counted in the step runs' blocks (the
+   validation between blocks and the graph capture counted apart), no
+   host launch in the scan runs' blocks, the kernels found in the trace of
+   a scan iteration, the graph replays counted;
+12. the serving path, through ``compare_models.main`` and ``play.main``:
    (a) a 9x9x5 round robin, 32 games a pairing, over the six committed
    ``models/tpu_smoke30`` exports and path A's fresh exports: K1, K2 and K5
    above 0, every pairing's games add up, the last committed export takes
@@ -70,7 +79,7 @@ Phases, in order; any failure exits non-zero:
    and K8 above 0, the last takes at least 28 of 32 from the first; then one
    game of the last ``tpu_smoke30`` export against the random policy, which
    the export wins;
-12. timings at the paths' shapes, after warm-up: device time per call from
+13. timings at the paths' shapes, after warm-up: device time per call from
    ``torch.profiler`` (``ms``, ``plain_ms``, ``library_ms``) and the
    per-call time between CUDA events (``call_ms``...) for each kernel, its
    plain version and a library yardstick that the port never calls (two
@@ -669,6 +678,133 @@ def phase_bench(torch, label):
     return launches
 
 
+def fused_run(torch, dev, label, arch, dispatch, tmp, iterations):
+    """``train_mnk_fused`` with ``arch``'s default config at ``dispatch`` for
+    ``iterations`` (blocks end after iteration 2: a validation there). The
+    counts are set to 0 just before each block (``train_fused.run_block``)
+    and read just after it, so the validation between blocks is not in
+    them; the graph capture's (warm-up iteration and capture) are kept
+    apart. Returns (summary, launches in the blocks, launches in the
+    capture, wall, the final parameters as one f32 vector, the metrics)."""
+    from rl_selfplay_mnk_tpu_torch import train_fused
+    from rl_selfplay_mnk_tpu_torch.alg.fused import FusedTrainer
+    from rl_selfplay_mnk_tpu_torch.train import build_config
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    counted = {"blocks": {}, "capture": {}}
+
+    def counting(fn, key):
+        def wrapped(*args, **kwargs):
+            reset_launches()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for name, n in read_launches().items():
+                    counted[key][name] = counted[key].get(name, 0) + n
+        return wrapped
+
+    config = build_config(arch)
+    config.update(validation_interval=2, export_dir=f"{tmp}/models", fused_dispatch=dispatch,
+                  run_name=f"chip_smoke_fused_{arch}_{dispatch}",
+                  total_environment_steps=iterations * config["num_envs"] * config["n_steps"])
+    run_block, capture = train_fused.run_block, FusedTrainer.capture
+    train_fused.run_block = counting(run_block, "blocks")
+    FusedTrainer.capture = counting(capture, "capture")
+    try:
+        t0 = time.perf_counter()
+        summary = train_fused.train_mnk_fused(config, device=str(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_fused.run_block, FusedTrainer.capture = run_block, capture
+    if summary["errors"] or summary["dispatch"] != dispatch:
+        raise AssertionError(f"{label} {dispatch}: errors {summary['errors']}, dispatch "
+                             f"{summary['dispatch']}")
+    its = summary["iterations"]
+    if len(its) != iterations or len(summary["validations"]) != 1:
+        raise AssertionError(f"{label} {dispatch}: {len(its)} iterations and "
+                             f"{len(summary['validations'])} validations, expected {iterations} "
+                             f"and 1")
+    for m in its:
+        if not all(math.isfinite(m[key]) for key in ("actor_loss", "critic_loss", "entropy_loss",
+                                                      "explained_variance", "grad_norm")):
+            raise AssertionError(f"{label} {dispatch}: metrics not finite: {m}")
+    params = torch.cat([p.detach().float().reshape(-1) for p in summary["model"].state_dict().values()])
+    untimed = [[m[k] for k in sorted(m) if k not in ("fps", "rollout_time", "learn_time")]
+               for m in its]
+    return summary, counted["blocks"], counted["capture"], wall, params, untimed
+
+
+def phase_fused(torch, dev, tmp, default_pair):
+    """The fused trainer (``train_fused.train_mnk_fused``) at the default
+    config (9x9x5 ``resnet_b_s``, 384 envs, n_steps 256, batch 8192) and at
+    path A's ``transformer_b_s``, 4 iterations each across the validation
+    after iteration 2: twice by the ``step`` dispatch (eager pieces), then by
+    ``scan`` (CUDA graphs), from one seed. The two step runs show whether
+    eager runs give the same bits; if they do, scan must give them too, if
+    not, scan must stay within their spread. The step runs' counts, taken
+    over the blocks alone, show K1 and K2 (ResNet) or K1, K5 and the
+    gradient pair (transformer) on the path; the scan run's blocks launch
+    no kernel from the host (graph replays only), and a traced scan
+    iteration (``utils/profiling.profile_fused_iteration``) shows the same
+    kernels inside the replays, with its launches an iteration. Prints each
+    run's wall time an iteration, its launches an iteration in the blocks,
+    the capture's launches and the graph replays an iteration, and the
+    largest step-vs-scan difference."""
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import profile_fused_iteration
+
+    paths = {}
+    for arch, launched in (("resnet_b_s", ("env_step", "resblock")),
+                           ("transformer_b_s", ("env_step", "attn_lane_slice_fwd") + default_pair)):
+        label = f"fused {arch} 9x9x5"
+        iterations = 4
+        runs = [fused_run(torch, dev, label, arch, d, tmp, iterations)
+                for d in ("step", "step", "scan")]
+        for (summary, blocks, capture, wall, _, _), name in zip(runs, ("step", "step again",
+                                                                       "scan")):
+            walls = summary["block_walls"]
+            per_iter = sum(w for _, w in walls) / sum(n for n, _ in walls)
+            print(f"{label} {name}: {wall:.1f}s in all ({summary.get('capture_s', 0.0):.1f}s "
+                  f"capture), {per_iter:.3f}s an iteration in its blocks, launches from the host "
+                  f"an iteration in the blocks {json.dumps({k: v / iterations for k, v in blocks.items() if v})}, "
+                  f"in the capture {json.dumps({k: v for k, v in capture.items() if v})}, graph "
+                  f"replays an iteration {summary['graph_replays'] / iterations:.0f}")
+        step_launches = runs[0][1]
+        for name in launched:
+            if step_launches.get(name, 0) <= 0:
+                raise AssertionError(f"{label}: kernel {name} was not launched in the step "
+                                     f"dispatch's blocks")
+        if any(runs[2][1].values()):
+            raise AssertionError(f"{label}: the scan blocks launched kernels from the host: "
+                                 f"{runs[2][1]}")
+        paths[label] = step_launches
+        replays = runs[2][0]["graph_replays"]
+        cfg_updates = 4 * 384 * 256 // 8192
+        if replays != iterations * (3 + 256 + cfg_updates):
+            raise AssertionError(f"{label}: {replays} graph replays for {iterations} iterations")
+
+        def spread(a, b):
+            return max((a[4] - b[4]).abs().max().item(),
+                       max(abs(x - y) for ra, rb in zip(a[5], b[5]) for x, y in zip(ra, rb)))
+
+        eager, scan = spread(runs[0], runs[1]), spread(runs[0], runs[2])
+        if (eager == 0.0 and scan != 0.0) or scan > eager:
+            raise AssertionError(f"{label}: scan differs from step by {scan:.3e}, two step runs "
+                                 f"by {eager:.3e}")
+        print(f"{label}: largest step-vs-scan difference {scan:.3e} (parameters, BatchNorm "
+              f"statistics and metrics; two step runs: {eager:.3e})")
+        rec = profile_fused_iteration("scan", warmup=1, iters=1, arch=arch)
+        found = rec["port_kernels_in_trace"]
+        for name in launched:
+            if found[name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} not in the trace of a scan iteration")
+        print(f"{label}: a traced scan iteration: {rec['graph_replays']} graph replays, "
+              f"{rec['kernel_launches']} kernels, idle share {rec['idle_share']:.3f}, port kernels "
+              f"launched an iteration (from the trace) "
+              f"{json.dumps({k: v for k, v in found.items() if v})}")
+    return paths
+
+
 def read_csv(path):
     import csv
 
@@ -1219,6 +1355,7 @@ def main() -> int:
         phase_resume(torch, dev, sources, tmp)
         label_bench = "bench 9x9x5 8192 envs"
         paths[label_bench] = phase_bench(torch, label_bench)
+        phase_fused(torch, dev, tmp, default_pair)
 
         # The serving path.
         label_9 = "tournament 9x9x5"

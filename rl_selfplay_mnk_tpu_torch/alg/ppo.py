@@ -14,7 +14,12 @@ Counterpart of the JAX package's ``alg/ppo.py`` for one device:
   * the epoch loss: clipped surrogate, 0.5 * value MSE, entropy bonus, with
     clip fraction, approx-KL and explained variance.
   * ``PPOOptimizer``: global-norm clip 0.5, then AdamW (eps 1e-5, weight
-    decay 0.01) with the lr schedule evaluated at the update count.
+    decay 0.01) with the lr schedule evaluated at the update count;
+    ``DeviceOptimizer`` the same with the lr and step counts on the device
+    (the fused trainer's, ``alg/fused.py``).
+  * ``rollout_step`` and ``minibatch_update``: one self-play step and one
+    minibatch, the pieces that ``rollout_impl`` and the epochs loop repeat
+    and that the fused trainer replays.
   * the watch (``run.watch`` in the reference): on an iteration that asks
     for it, ``GradWatch`` accumulates every update's pre-clip gradients on
     the device (each leaf's squared L2 norm and, with ``watch_hist_bins``,
@@ -232,9 +237,10 @@ class PPOOptimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
-        """Clip, step, advance the update count; returns the pre-clip norm.
-        ``watch`` takes the gradients before the clip."""
+    def clip(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
+        """Scale the gradients to the global norm ``max_grad_norm`` where
+        they exceed it; returns the pre-clip norm. ``watch`` takes the
+        gradients before the clip."""
         grads = [p.grad for p in self.params]
         norms = torch._foreach_norm(grads)
         if watch is not None:
@@ -244,6 +250,11 @@ class PPOOptimizer:
         clipped = norm >= self.max_grad_norm
         scale = torch.where(clipped, self.max_grad_norm / norm, torch.ones_like(norm))
         torch._foreach_mul_(grads, scale)
+        return norm
+
+    def step(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
+        """Clip, step, advance the update count; returns the pre-clip norm."""
+        norm = self.clip(watch)
         for group in self.adamw.param_groups:
             group["lr"] = self.lr_schedule(self.count)
         self.adamw.step()
@@ -251,9 +262,111 @@ class PPOOptimizer:
         return norm.detach()
 
 
+class DeviceOptimizer(PPOOptimizer):
+    """The fused trainer's optimizer: the same clip and AdamW, with the lr
+    and the step counts on the device. The lr is the 0-d float32 tensor
+    ``lr``, which the caller sets on the device (``alg/fused.py``, from the
+    iteration counter through ``schedules.make_lr_fn``); on the card AdamW
+    is ``capturable``, so a CUDA graph replays the whole step. AdamW's
+    state is made here, as its first step would make it, so that
+    checkpoints and graph captures copy into tensors that stay put."""
+
+    def __init__(self, params, lr: float, max_grad_norm: float = 0.5, eps: float = 1e-5,
+                 weight_decay: float = 0.01):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_grad_norm = max_grad_norm
+        device = self.params[0].device
+        capturable = device.type == "cuda"
+        self.lr = torch.full((), lr, dtype=torch.float32, device=device)
+        self.adamw = torch.optim.AdamW(self.params, lr=self.lr, eps=eps,
+                                       weight_decay=weight_decay, capturable=capturable)
+        for p in self.params:
+            self.adamw.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=device if capturable else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
+
+    def state_tensors(self) -> dict:
+        """AdamW's state by a flat name (parameter index / field)."""
+        return {f"{i}/{k}": v for i, p in enumerate(self.params)
+                for k, v in self.adamw.state[p].items()}
+
+    def step(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
+        norm = self.clip(watch)
+        self.adamw.step()
+        return norm.detach()
+
+
 # ---------------------------------------------------------------------------
 # rollout and update
 # ---------------------------------------------------------------------------
+
+
+def rollout_buffers(config: PPOConfig, device):
+    """The trajectory buffers, a dict of (T, E, ...) tensors, and the
+    finished-episode sums: (3,), or (3, fin_blocks)."""
+    t_len, e = config.n_steps, config.num_envs
+    m, n, a = config.env.m, config.env.n, config.env.num_actions
+    traj = {
+        "obs": torch.empty((t_len, e, 2, m, n), dtype=torch.uint8, device=device),
+        "mask": torch.empty((t_len, e, a), dtype=torch.bool, device=device),
+        "actions": torch.empty((t_len, e), dtype=torch.int64, device=device),
+        "log_probs": torch.empty((t_len, e), dtype=torch.float32, device=device),
+        "rewards": torch.empty((t_len, e), dtype=torch.float32, device=device),
+        "values": torch.empty((t_len, e), dtype=torch.float32, device=device),
+        "dones": torch.empty((t_len, e), dtype=torch.bool, device=device),
+    }
+    blocks = config.fin_blocks
+    fin = torch.zeros((3, blocks) if blocks else (3,), dtype=torch.float32, device=device)
+    return traj, fin
+
+
+def _write_row(buf: torch.Tensor, t, value: torch.Tensor) -> None:
+    """buf[t] = value; ``t`` an int, or a (1,) int64 tensor on the device."""
+    if isinstance(t, int):
+        buf[t] = value
+    else:
+        buf.index_copy_(0, t, value.to(buf.dtype)[None])
+
+
+@torch.no_grad()
+def rollout_step(model, config: PPOConfig, opponent, sp_state, obs: dict, ep_rew: torch.Tensor,
+                 ep_len: torch.Tensor, traj: dict, fin: torch.Tensor, t,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None, sides: Optional[torch.Tensor] = None):
+    """One step of ``rollout_impl``: writes row ``t`` of ``traj`` (an int, or
+    a (1,) int64 tensor on the device, the fused trainer's step counter) and
+    adds the episodes that finished to ``fin``, in place. ``noise`` (E, A)
+    and ``sides`` (E,) inject the step's draws. Returns (sp_state, obs,
+    ep_rew, ep_len)."""
+    blocks = config.fin_blocks
+
+    def finsum(x):  # block i = envs [i E / blocks, (i + 1) E / blocks)
+        return x.reshape(blocks, -1).sum(1) if blocks else x.sum()
+
+    logits, value = train_apply(model, obs["observation"])
+    mlogits = mask_logits(logits, obs["action_mask"])
+    actions = masked_sample(mlogits, generator, noise)
+    logp = log_prob(mlogits, actions)
+    _write_row(traj["obs"], t, obs["observation"])
+    _write_row(traj["mask"], t, obs["action_mask"])
+    sp_state, obs, rewards, dones = selfplay_step(
+        config.env, opponent, sp_state, actions, generator, sides
+    )
+    ep_rew = ep_rew + rewards
+    ep_len = ep_len + 1.0
+    d = dones.to(torch.float32)
+    fin += torch.stack([finsum(ep_rew * d), finsum(ep_len * d), finsum(d)])
+    ep_rew = ep_rew * (1.0 - d)
+    ep_len = ep_len * (1.0 - d)
+    _write_row(traj["actions"], t, actions)
+    _write_row(traj["log_probs"], t, logp)
+    _write_row(traj["rewards"], t, rewards)
+    _write_row(traj["values"], t, value[:, 0])
+    _write_row(traj["dones"], t, dones)
+    return sp_state, obs, ep_rew, ep_len
 
 
 @torch.no_grad()
@@ -279,47 +392,13 @@ def rollout_impl(
     finished count), a (3,) tensor, or (3, fin_blocks) with a sum for each
     block of envs.
     """
-    t_len, e = config.n_steps, config.num_envs
-    device = ep_rew.device
-    m, n, a = config.env.m, config.env.n, config.env.num_actions
-    traj = {
-        "obs": torch.empty((t_len, e, 2, m, n), dtype=torch.uint8, device=device),
-        "mask": torch.empty((t_len, e, a), dtype=torch.bool, device=device),
-        "actions": torch.empty((t_len, e), dtype=torch.int64, device=device),
-        "log_probs": torch.empty((t_len, e), dtype=torch.float32, device=device),
-        "rewards": torch.empty((t_len, e), dtype=torch.float32, device=device),
-        "values": torch.empty((t_len, e), dtype=torch.float32, device=device),
-        "dones": torch.empty((t_len, e), dtype=torch.bool, device=device),
-    }
-    blocks = config.fin_blocks
-    fin = torch.zeros((3, blocks) if blocks else (3,), dtype=torch.float32, device=device)
-
-    def finsum(x):  # block i = envs [i E / blocks, (i + 1) E / blocks)
-        return x.reshape(blocks, -1).sum(1) if blocks else x.sum()
-
-    for t in range(t_len):
-        logits, value = train_apply(model, obs["observation"])
-        mlogits = mask_logits(logits, obs["action_mask"])
-        noise = draws["noise"][t] if draws is not None else None
-        actions = masked_sample(mlogits, generator, noise)
-        logp = log_prob(mlogits, actions)
-        traj["obs"][t] = obs["observation"]
-        traj["mask"][t] = obs["action_mask"]
-        sides = draws["sides"][t] if draws is not None else None
-        sp_state, obs, rewards, dones = selfplay_step(
-            config.env, opponent, sp_state, actions, generator, sides
+    traj, fin = rollout_buffers(config, ep_rew.device)
+    for t in range(config.n_steps):
+        sp_state, obs, ep_rew, ep_len = rollout_step(
+            model, config, opponent, sp_state, obs, ep_rew, ep_len, traj, fin, t, generator,
+            draws["noise"][t] if draws is not None else None,
+            draws["sides"][t] if draws is not None else None,
         )
-        ep_rew = ep_rew + rewards
-        ep_len = ep_len + 1.0
-        d = dones.to(torch.float32)
-        fin += torch.stack([finsum(ep_rew * d), finsum(ep_len * d), finsum(d)])
-        ep_rew = ep_rew * (1.0 - d)
-        ep_len = ep_len * (1.0 - d)
-        traj["actions"][t] = actions
-        traj["log_probs"][t] = logp
-        traj["rewards"][t] = rewards
-        traj["values"][t] = value[:, 0]
-        traj["dones"][t] = dones
     return sp_state, obs, traj, fin, (ep_rew, ep_len)
 
 
@@ -382,6 +461,53 @@ _METRIC_KEYS = (
 )
 
 
+def minibatch_update(model, config: PPOConfig, optimizer: PPOOptimizer, flats: dict,
+                     rows: torch.Tensor, entropy_coef, watch: Optional[GradWatch] = None
+                     ) -> torch.Tensor:
+    """One minibatch update on the ``rows`` (or groups) of ``flats``;
+    returns its metrics, a (7,) tensor in ``_METRIC_KEYS`` order.
+    ``entropy_coef`` is a float or a 0-d tensor; ``watch`` takes the
+    pre-clip gradients."""
+    def take(x):
+        picked = x[rows]
+        if config.shuffle == "grouped":
+            picked = picked.reshape((config.batch_size,) + tuple(x.shape[2:]))
+        return picked
+
+    obs, mask, actions = take(flats["obs"]), take(flats["mask"]), take(flats["actions"])
+    old_logp, rets, adv = take(flats["old_logp"]), take(flats["returns"]), take(flats["adv"])
+
+    logits, value = train_apply(model, obs)
+    mlogits = mask_logits(logits, mask)
+    new_logp = log_prob(mlogits, actions)
+    ent = masked_entropy(mlogits).mean()
+
+    log_ratio = new_logp - old_logp
+    ratio = torch.exp(log_ratio)
+    surr1 = ratio * adv
+    surr2 = torch.clamp(ratio, 1.0 - config.clip_range, 1.0 + config.clip_range) * adv
+    actor_loss = -torch.minimum(surr1, surr2).mean()
+    critic_loss = torch.mean((value[:, 0] - rets) ** 2)
+    entropy_loss = -ent
+    total = actor_loss + config.value_coef * critic_loss + entropy_coef * entropy_loss
+
+    optimizer.zero_grad()
+    total.backward()
+    grad_norm = optimizer.step(watch)
+
+    with torch.no_grad():
+        clip_frac = ((ratio - 1.0).abs() > config.clip_range).to(torch.float32).mean()
+        approx_kl = ((ratio - 1.0) - log_ratio).mean()
+        rvar = rets.var()
+        explained_var = torch.where(
+            rvar > 1e-8, 1.0 - critic_loss / rvar, torch.zeros_like(rvar)
+        )
+        return torch.stack([
+            actor_loss, critic_loss, entropy_loss, grad_norm,
+            clip_frac, approx_kl, explained_var,
+        ]).detach()
+
+
 def _update_epochs_impl(
     model,
     config: PPOConfig,
@@ -394,49 +520,11 @@ def _update_epochs_impl(
     """Minibatch SGD over the given epochs' indices; returns the per-update
     mean of each metric as a 0-d tensor. ``watch`` takes every update's
     pre-clip gradients."""
-    grouped = config.shuffle == "grouped"
     sums = torch.zeros((len(_METRIC_KEYS),), dtype=torch.float32, device=flats["adv"].device)
     n_updates = 0
     for idx in epoch_indices:
         for rows in idx:
-            def take(x):
-                picked = x[rows]
-                if grouped:
-                    picked = picked.reshape((config.batch_size,) + tuple(x.shape[2:]))
-                return picked
-
-            obs, mask, actions = take(flats["obs"]), take(flats["mask"]), take(flats["actions"])
-            old_logp, rets, adv = take(flats["old_logp"]), take(flats["returns"]), take(flats["adv"])
-
-            logits, value = train_apply(model, obs)
-            mlogits = mask_logits(logits, mask)
-            new_logp = log_prob(mlogits, actions)
-            ent = masked_entropy(mlogits).mean()
-
-            log_ratio = new_logp - old_logp
-            ratio = torch.exp(log_ratio)
-            surr1 = ratio * adv
-            surr2 = torch.clamp(ratio, 1.0 - config.clip_range, 1.0 + config.clip_range) * adv
-            actor_loss = -torch.minimum(surr1, surr2).mean()
-            critic_loss = torch.mean((value[:, 0] - rets) ** 2)
-            entropy_loss = -ent
-            total = actor_loss + config.value_coef * critic_loss + entropy_coef * entropy_loss
-
-            optimizer.zero_grad()
-            total.backward()
-            grad_norm = optimizer.step(watch)
-
-            with torch.no_grad():
-                clip_frac = ((ratio - 1.0).abs() > config.clip_range).to(torch.float32).mean()
-                approx_kl = ((ratio - 1.0) - log_ratio).mean()
-                rvar = rets.var()
-                explained_var = torch.where(
-                    rvar > 1e-8, 1.0 - critic_loss / rvar, torch.zeros_like(rvar)
-                )
-                sums += torch.stack([
-                    actor_loss, critic_loss, entropy_loss, grad_norm,
-                    clip_frac, approx_kl, explained_var,
-                ]).detach()
+            sums += minibatch_update(model, config, optimizer, flats, rows, entropy_coef, watch)
             n_updates += 1
     return dict(zip(_METRIC_KEYS, sums / max(n_updates, 1)))
 

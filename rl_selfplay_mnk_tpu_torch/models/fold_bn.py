@@ -19,6 +19,11 @@ pool entry or the benchmark: the folded copy for a model with BatchNorm, a
 frozen deep copy for one without (the transformer families, ``mlp_tiny``).
 ``snapshot_from_state_dict`` rebuilds one from its ``state_dict()``, as a
 checkpoint keeps it.
+
+``fold_into`` is the fused trainer's staging of an opponent: it writes the
+snapshot of a state dict into an existing snapshot's tensors, in place (the
+fold for a model with BatchNorm, a copy for one without), so the opponent of
+a captured CUDA graph keeps its buffers.
 """
 
 from __future__ import annotations
@@ -58,6 +63,36 @@ def _mark_folded(folded):
     folded.folded = True
     folded.requires_grad_(False)
     return folded
+
+
+@torch.no_grad()
+def fold_into(folded, state) -> None:
+    """Write ``snapshot`` of a model whose ``state_dict()`` is ``state``
+    into ``folded`` (a snapshot of the same architecture), in place: the
+    same bits as ``fold_batchnorm``, the residual blocks' kernel weights
+    included; a plain copy for a model without BatchNorm."""
+    dst = folded.state_dict()
+    if not hasattr(folded, "conv_bn_pairs"):
+        for name, t in dst.items():
+            t.copy_(state[name])
+        return
+    prefix = {id(mod): name + "." for name, mod in folded.named_modules()}
+    fold_keys = set()
+    for conv, bn in folded.conv_bn_pairs():
+        c, b = prefix[id(conv)], prefix[id(bn)]
+        inv = state[b + "weight"] / torch.sqrt(state[b + "running_var"] + bn.eps)
+        conv.weight.copy_(state[c + "weight"] * inv[:, None, None, None])
+        conv.bias.copy_((state[c + "bias"] - state[b + "running_mean"]) * inv + state[b + "bias"])
+        fold_keys.update(c + k for k in ("weight", "bias"))
+        fold_keys.update(b + k for k in ("weight", "bias", "running_mean", "running_var"))
+    for name, t in dst.items():
+        if name not in fold_keys:  # the heads; folded BatchNorm stays the identity
+            t.copy_(state[name])
+    for blk in getattr(folded, "blocks", ()):
+        for kw, conv in zip(blk.kernel_weights[0::2], (blk.conv1, blk.conv2)):
+            kw.copy_(conv_kernel_to_im2col(conv.weight))
+        for kb, conv in zip(blk.kernel_weights[1::2], (blk.conv1, blk.conv2)):
+            kb.copy_(conv.bias)
 
 
 def snapshot(model):

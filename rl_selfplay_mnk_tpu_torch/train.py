@@ -34,6 +34,7 @@ Usage::
     python -m rl_selfplay_mnk_tpu_torch.train --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
     python -m rl_selfplay_mnk_tpu_torch.train --run-name r1 --checkpoint-interval 10 [--resume]
     python -m rl_selfplay_mnk_tpu_torch.train --matchmaking pfsp_even --watch-interval 5
+    python -m rl_selfplay_mnk_tpu_torch.train --fused  # train_fused.train_mnk_fused
 
 ``--arch`` also sets the family's learning rate and entropy schedule
 (``apply_family_hparams``). On the command line, and only there, ``--mnk 13
@@ -548,6 +549,9 @@ def config_from_args(argv=None) -> Dict[str, Any]:
                         help="log gradient and parameter norms every N iterations (0 = never)")
     parser.add_argument("--watch-histograms", action="store_true",
                         help="also log 16-bin parameter histograms at the watch cadence")
+    parser.add_argument("--fused", action="store_true",
+                        help="device-resident iteration loop (train_fused): opponent pool, "
+                        "draws and schedules on the card, CUDA graphs a validation block")
     args = parser.parse_args(argv)
 
     config = build_config(args.arch, args.mnk, args.batch_size)
@@ -577,14 +581,22 @@ def config_from_args(argv=None) -> Dict[str, Any]:
         config["watch_interval"] = args.watch_interval
     if args.watch_histograms:
         config["watch_histograms"] = True
+    if args.fused:
+        config["fused"] = True
     return config
 
 
 def main(argv=None) -> None:
     config = config_from_args(argv)
+    fused = config.pop("fused", False)
     with MetricsLogger(run_name=config["run_name"], config=config, group="main_run_small_board",
                        tags=["main_experiment"]) as logger:
-        train_mnk(config, logger)
+        if fused:
+            from .train_fused import train_mnk_fused
+
+            train_mnk_fused(config, logger)
+        else:
+            train_mnk(config, logger)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,15 @@ kernels that take the most device time. ``--watch`` traces a watch
 iteration's update, which also gathers the gradient statistics. The last
 line is one JSON object with those numbers.
 
+``--fused [--dispatch step|scan]`` traces instead one iteration of the
+fused trainer (``alg/fused.py``) at the same config: its wall time untraced
+(the mean over ``--iters`` iterations) and traced, the device's busy time
+and idle share, the kernel launches in the trace, the CUDA graph replays,
+the launches counted by the port's wrappers (under ``scan`` these count the
+capture, not the replays) and the port's kernels found in the trace by
+name. Without ``--fused`` the untraced iteration wall of the host loop is
+reported the same way (``iteration_wall_s``).
+
 ``--tournament A B`` traces instead one half-pairing of a tournament
 (``play_batch_games`` between the exports A and B, ``--games`` boards, after
 one untraced half-pairing as warm-up) and prints the same numbers for it and
@@ -23,6 +32,7 @@ Usage::
 
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling [--warmup 2] [--trace out.json] [--watch]
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s
+    python -m rl_selfplay_mnk_tpu_torch.utils.profiling --fused --dispatch scan [--arch transformer_b_s]
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_c_s --route infold
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --arch transformer_b_s_w --mnk 13 13 5 --batch-size 4096
     python -m rl_selfplay_mnk_tpu_torch.utils.profiling --mnk 9 9 5 --games 16 \\
@@ -59,6 +69,7 @@ from ..ops.env_step import fused_step
 from ..ops.resblock import fused_residual_block
 from ..selfplay.policies import NNPolicy
 from ..train import build_config, create_learner
+from ..train_fused import create_fused_trainer, run_block
 from .hardware import detect_hardware_config
 
 
@@ -74,6 +85,13 @@ PORT_KERNELS = {
     "attn_packed_fwd": attention_packed_fwd,
     "attn_packed_bwd": attention_packed_bwd,
 }
+
+
+def trace_launches(times) -> dict:
+    """The port's kernels in a trace, by name: each kernel symbol begins
+    with its wrapper's name (``env_step_kernel``, ``attn_folded_fwd_mma``...)."""
+    return {name: sum(c for kernel, (_, c) in times.items() if name in kernel)
+            for name in PORT_KERNELS}
 
 
 def reset_launches() -> None:
@@ -114,7 +132,7 @@ def forced_route(arch: str, route: str | None):
 
 def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
                       arch: str | None = None, mnk=None, batch_size: int | None = None,
-                      route: str | None = None, watch: bool = False) -> dict:
+                      route: str | None = None, watch: bool = False, iters: int = 2) -> dict:
     hw = detect_hardware_config("cuda")
     config = build_config(arch, mnk, batch_size)
     with forced_route(config["architecture_name"], route):
@@ -124,6 +142,13 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
                           config["num_envs"], config["n_steps"])
     for _ in range(warmup):
         learner.learn(NNPolicy(eval_apply, snapshot(learner.model), generator), ent)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        learner.learn(NNPolicy(eval_apply, snapshot(learner.model), generator), ent)
+    torch.cuda.synchronize()
+    iteration_wall = (time.perf_counter() - t0) / iters
+    print(f"host loop: {iteration_wall:.3f}s an iteration untraced (mean of {iters})")
 
     phases = {}
     kernels = {}
@@ -163,9 +188,95 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
             print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
     return {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
             "route": route, "watch": watch, "mnk": list(config["mnk"]),
-            "batch_size": config["batch_size"],
+            "batch_size": config["batch_size"], "iteration_wall_s": iteration_wall,
             "phases": phases,
             "port_kernel_launches": launches, "top_kernels": kernels}
+
+
+def profile_fused_iteration(dispatch: str = "scan", warmup: int = 1, iters: int = 2,
+                            trace: str | None = None, top: int = 15, arch: str | None = None,
+                            mnk=None, batch_size: int | None = None,
+                            whole_graph: bool = False) -> dict:
+    """One traced iteration of the fused trainer on the card, after
+    ``warmup`` untraced ones (the first captures the graphs under
+    ``scan``) and ``iters`` timed untraced ones; ``whole_graph`` then also
+    times one whole iteration captured as a single graph
+    (``time_whole_iteration_graph``)."""
+    hw = detect_hardware_config("cuda")
+    config = build_config(arch, mnk, batch_size)
+    trainer = create_fused_trainer(config, hw, max_block=max(iters, 1))[0]
+    it = 0
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        run_block(trainer, dispatch, it, 1, 1.0)
+        it += 1
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_block(trainer, dispatch, it, iters, 1.0)
+    iteration_wall = (time.perf_counter() - t0) / iters
+    it += iters
+    reset_launches()
+    replays = trainer.graph_replays
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_block(trainer, dispatch, it, 1, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace.replace(".json", f".fused_{dispatch}.json"))
+    times = kernel_times(prof)
+    busy = sum(t for t, _ in times.values()) / 1e6
+    rec = {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
+           "mnk": list(config["mnk"]), "num_envs": config["num_envs"], "dispatch": dispatch,
+           "warmup_s": setup, "iteration_wall_s": iteration_wall, "traced_wall_s": wall,
+           "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+           "kernel_launches": sum(c for _, c in times.values()),
+           "graph_replays": trainer.graph_replays - replays,
+           "port_kernel_launches": read_launches(), "port_kernels_in_trace": trace_launches(times),
+           "top_kernels": sorted(({"name": k[:90], "device_ms": t / 1e3, "count": c}
+                                  for k, (t, c) in times.items()),
+                                 key=lambda r: -r["device_ms"])[:top]}
+    print(f"fused {dispatch}: {iteration_wall:.3f}s an iteration untraced (mean of {iters}), "
+          f"traced wall {wall:.3f}s, device busy {busy:.3f}s, idle share {rec['idle_share']:.3f}, "
+          f"{rec['kernel_launches']} kernel launches, {rec['graph_replays']} graph replays, "
+          f"port kernels in the trace {json.dumps(rec['port_kernels_in_trace'])}")
+    for r in rec["top_kernels"]:
+        print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
+    if whole_graph:
+        rec["whole_iteration_graph"] = time_whole_iteration_graph(trainer)
+    return rec
+
+
+def time_whole_iteration_graph(trainer) -> dict:
+    """The alternative to the fused trainer's piecewise graphs: one whole
+    iteration captured as a single CUDA graph, after the trainer's own
+    capture (its warm-up). Times the capture (instantiation included) and
+    two replays; counts the graph's nodes. The train state is put back
+    afterwards."""
+    saved = trainer.save_state(trainer.device)
+    graph = torch.cuda.CUDAGraph()
+    for generator in (trainer.generator, trainer.policy_generator):
+        graph.register_generator_state(generator)
+    trainer.begin_block(0, 1.0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        trainer.iteration()
+    torch.cuda.synchronize()
+    capture = time.perf_counter() - t0
+    replays = []
+    for _ in range(2):
+        trainer.begin_block(0, 1.0, 1)  # the iteration writes metrics row 0
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(time.perf_counter() - t0)
+    trainer.load_state(saved)
+    rec = {"capture_s": capture, "replay_s": replays}
+    print(f"whole-iteration graph: capture and instantiation {capture:.2f}s, replays "
+          f"{', '.join(f'{r:.3f}s' for r in replays)}")
+    return rec
 
 
 def profile_half_pairing(paths, mnk=(9, 9, 5), games: int = 16, trace: str | None = None,
@@ -229,14 +340,29 @@ def main(argv=None) -> None:
     parser.add_argument("--tournament", nargs=2, default=None, metavar=("A", "B"),
                         help="trace one half-pairing between these two exports instead")
     parser.add_argument("--games", type=int, default=16, help="boards of the half-pairing")
+    parser.add_argument("--fused", action="store_true",
+                        help="trace an iteration of the fused trainer instead")
+    parser.add_argument("--dispatch", choices=("step", "scan"), default="scan",
+                        help="the fused trainer's dispatch (with --fused)")
+    parser.add_argument("--iters", type=int, default=2,
+                        help="untraced iterations timed before the traced one")
+    parser.add_argument("--whole-graph", action="store_true",
+                        help="with --fused --dispatch scan: also capture and time a whole "
+                        "iteration as one graph")
     args = parser.parse_args(argv)
+    if args.fused:
+        print(json.dumps(profile_fused_iteration(args.dispatch, max(args.warmup, 1),
+                                                 args.iters, args.trace, arch=args.arch,
+                                                 mnk=args.mnk, batch_size=args.batch_size,
+                                                 whole_graph=args.whole_graph)))
+        return
     if args.tournament:
         print(json.dumps(profile_half_pairing(args.tournament, args.mnk or (9, 9, 5), args.games,
                                               args.trace)))
         return
     print(json.dumps(profile_iteration(args.warmup, args.trace, arch=args.arch, mnk=args.mnk,
                                        batch_size=args.batch_size, route=args.route,
-                                       watch=args.watch)))
+                                       watch=args.watch, iters=args.iters)))
 
 
 if __name__ == "__main__":

@@ -682,3 +682,84 @@ def test_attention_raises_beyond_the_kernels_limits(device):
               torch.zeros((2, 200, 64), device=device, dtype=torch.bfloat16)):
         with pytest.raises(KernelError):
             attn.attention_packed_bwd(q, q, q, q, 1, q.shape[2])
+
+
+# The fused trainer's graphs (alg/fused.py) at a small width of the default
+# config: 9x9x5 resnet_b_s, 64 envs, 32 steps, batch 512 (4 minibatches an
+# epoch), a pool of 4.
+def fused_trainer(device, arch="resnet_b_s"):
+    from rl_selfplay_mnk_tpu_torch.train import build_config
+    from rl_selfplay_mnk_tpu_torch.train_fused import create_fused_trainer
+    from rl_selfplay_mnk_tpu_torch.utils.hardware import detect_hardware_config
+
+    config = build_config(arch)
+    config.update(num_envs=64, n_steps=32, batch_size=512, opponent_pool=4)
+    return create_fused_trainer(config, detect_hardware_config(str(device)), max_block=2)[0]
+
+
+@pytest.mark.parametrize("arch", ["resnet_b_s", "transformer_b_s"])
+def test_fused_scan_matches_step_dispatch(device, arch):
+    """Two iterations by the step dispatch, twice, and by the graphs: where
+    the two eager runs give the same bits the graphs give them too, else
+    they stay within the eager runs' spread."""
+    from rl_selfplay_mnk_tpu_torch.alg import fused
+    from rl_selfplay_mnk_tpu_torch.train_fused import run_block
+
+    finals = []
+    for dispatch in ("step", "step", "scan"):
+        trainer = fused_trainer(device, arch)
+        rows = run_block(trainer, dispatch, 0, 2, 1.0)
+        finals.append((rows, {k: v.clone() for k, v in trainer.state_tensors().items()}))
+        if dispatch == "scan":
+            assert trainer.graph_replays == 2 * (3 + 32 + trainer.config.updates_per_iteration)
+            assert set(trainer.graphs) == set(fused.PIECES)
+
+    def spread(a, b):
+        return max([(a[0] - b[0]).abs().max().item()]
+                   + [(a[1][k].float() - b[1][k].float()).abs().max().item() for k in a[1]])
+
+    eager, scan = spread(finals[0], finals[1]), spread(finals[0], finals[2])
+    assert (scan == 0.0) if eager == 0.0 else scan <= eager, (eager, scan)
+
+
+def test_fused_graph_replays_draw_fresh_numbers(device):
+    """A replay of the draw and step graphs from one state and the same
+    generator states gives the same actions; with the generators advanced,
+    other actions: the replays take fresh numbers from the registered
+    generators."""
+    from rl_selfplay_mnk_tpu_torch.alg.fused import train_block
+
+    trainer = fused_trainer(device)
+    train_block(trainer, 0, 1)
+    state = trainer.save_state(device)
+    actions = []
+    for advance in (False, False, True):
+        if advance:
+            state["generator"] = trainer.generator.get_state()
+            state["policy_generator"] = trainer.policy_generator.get_state()
+        trainer.load_state(state)
+        trainer.replay("draw")
+        trainer.replay("step", 4)
+        actions.append(trainer.traj["actions"][:4].clone())
+    assert torch.equal(actions[0], actions[1])
+    assert not torch.equal(actions[0], actions[2])
+
+
+def test_fused_graph_inserts_only_on_the_cadence(device):
+    """The captured masked insert writes a pool slot at iteration 20 and at
+    no other: a block over 19 and 20 adds one member with the block's
+    weight, a block over 21 and 22 none."""
+    from rl_selfplay_mnk_tpu_torch.alg.fused import train_block
+
+    trainer = fused_trainer(device)
+    pool = trainer.pool
+    before = {k: v.clone() for k, v in pool.tensors().items()}
+    train_block(trainer, 19, 2, 0.5)
+    assert int(pool.size) == 2 and int(pool.next_idx) == 2
+    assert float(pool.weights[1]) == 0.5
+    assert not torch.equal(pool.stacked["conv_in.weight"][1], before["stacked/conv_in.weight"][1])
+    assert all(torch.equal(pool.stacked[k][i], before[f"stacked/{k}"][i])
+               for k in pool.stacked for i in (0, 2, 3))
+    after = {k: v.clone() for k, v in pool.tensors().items()}
+    train_block(trainer, 21, 2, 0.25)
+    assert all(torch.equal(v, after[k]) for k, v in pool.tensors().items())

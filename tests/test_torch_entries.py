@@ -60,13 +60,50 @@ def test_bench_learning_mode_refuses_throughput_flags(flag):
     assert flag[0] in str(exc.value.code) and "ignored" in str(exc.value.code)
 
 
-@pytest.mark.parametrize("flag", [["--fused"], ["--update-chunks", "2"], ["--use-pallas"]],
+@pytest.mark.parametrize("flag", [["--update-chunks", "2"], ["--use-pallas"]],
                          ids=lambda f: f[0])
 def test_bench_refuses_the_flags_it_does_not_port(flag):
     for mode in ("throughput", "learning"):
-        with pytest.raises(SystemExit) as exc:
-            bench.main(["--mode", mode, "--device", "cpu", *flag])
-        assert isinstance(exc.value.code, str) and f"{flag[0]} is not ported" in exc.value.code
+        for fused in ([], ["--fused"]):
+            with pytest.raises(SystemExit) as exc:
+                bench.main(["--mode", mode, "--device", "cpu", *fused, *flag])
+            assert isinstance(exc.value.code, str) and f"{flag[0]} is not ported" in exc.value.code
+
+
+# The fused bench is the 9x9x5 headline with batch 8192: 32 envs x 256
+# steps make one minibatch.
+FUSED_TINY = ["--fused", "--num-envs", "32", "--n-steps", "256", "--iters", "1", "--warmup", "0",
+              "--arch", "mlp_tiny", "--device", "cpu"]
+
+
+def test_bench_fused_prints_one_json_line_with_the_jax_keys(capsys):
+    record = bench.main(FUSED_TINY)
+    out = capsys.readouterr()
+    assert json.loads(out.out.strip().splitlines()[-1]) == record
+    assert set(record) == {"metric", "value", "unit", "vs_baseline", "vs_north_star"}
+    assert (record["metric"], record["unit"]) == ("env_steps_per_sec", "steps/s")
+    assert record["value"] > 0
+    assert record["vs_baseline"] == round(record["value"] / 273.0, 2)
+    assert "# card: cpu" in out.err and "# fused dispatch step" in out.err
+
+
+@pytest.mark.parametrize("flag", [["--mnk", "5", "5", "4"], ["--batch-size", "4096"]],
+                         ids=lambda f: f[0])
+def test_bench_fused_refuses_another_board_or_batch(flag):
+    """As the JAX bench does: the fused throughput mode is the 9x9x5 headline."""
+    with pytest.raises(SystemExit) as exc:
+        bench.main(FUSED_TINY + flag)
+    assert "9x9x5 headline only" in str(exc.value.code)
+
+
+def test_bench_dispatch_needs_fused_and_scan_needs_the_card():
+    """``--dispatch`` picks the fused trainer's dispatch: refused without
+    ``--fused``; its CUDA graphs (``scan``) are refused on the CPU."""
+    with pytest.raises(SystemExit) as exc:
+        bench.main(["--device", "cpu", "--dispatch", "step"])
+    assert "add --fused" in str(exc.value.code)
+    with pytest.raises(ValueError, match="needs the card"):
+        bench.main(FUSED_TINY + ["--dispatch", "scan"])
 
 
 class Capture:

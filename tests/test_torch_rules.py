@@ -249,13 +249,14 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("entry", ["train", "bench", "train_all", "train_all_13", "train_worker",
-                                   "train_short", "sweep"])
+                                   "train_short", "sweep", "train_fused", "bench_fused"])
 def test_trainer_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     """The trainer's command line, the bench and the batch entries run on
     the card unless ``--device cpu`` is given, and raise without CUDA. The
     batch entries' ``train_mnk`` is replaced by its first step, the device's
     resolution (their six full-size runs are no test); the trainer runs
-    zero iterations on 3x3x3, the bench one tiny iteration."""
+    zero iterations on 3x3x3, the bench one tiny iteration; ``--fused`` takes
+    both through the fused trainer."""
     from rl_selfplay_mnk_tpu_torch import bench, sweep, train, train_all, train_all_13, train_short, \
         train_worker
     from rl_selfplay_mnk_tpu_torch.utils.hardware import detect_hardware_config
@@ -279,6 +280,12 @@ def test_trainer_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
         "train_worker": lambda *dev: train_worker.main(["cnn_b_s", "13x13", *on(dev)]),
         "train_short": lambda *dev: train_short.main(on(dev)),
         "sweep": lambda *dev: sweep.main(["--trials", "1", *on(dev)]),
+        "train_fused": lambda *dev: train.main(tiny + ["--fused", "--total-steps", "8",
+                                                       "--run-name", "f", "--export-dir",
+                                                       str(tmp_path / "m"), *on(dev)]),
+        "bench_fused": lambda *dev: bench.main(["--fused", "--num-envs", "32", "--n-steps", "256",
+                                                "--iters", "1", "--warmup", "0",
+                                                "--arch", "mlp_tiny", *on(dev)]),
     }
     calls[entry]("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
