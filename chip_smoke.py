@@ -805,6 +805,349 @@ def phase_fused(torch, dev, tmp, default_pair):
     return paths
 
 
+# The distributed phase's check of the first minibatch's all-reduced gradient
+# (two ranks sharing the card, gloo) against one rank's, on the same
+# trajectory, weights and indices in the same layout: ||g2 - g1|| <=
+# DIST_GRAD_RTOL * ||g1||, the limit set before the first run on the card.
+# Two ranks average two halves' gradients, and their BatchNorm statistics
+# are means of two ranks' means. The reason given then (a few bf16
+# activations moved by one rounding step) missed the larger part: each
+# weight's gradient comes out of a bf16 product rounded to bf16 (up to 2^-9
+# of each element), once for the whole batch on one rank and once for each
+# half on two. The first run read 7.425e-3 (NVIDIA H100 80GB HBM3, 700.00
+# W), 0.95 of the limit; the inputs are fixed by the seed, so a run reads
+# the same.
+DIST_GRAD_RTOL = 2.0**-7
+DIST_STEPS = 2 * 384 * 256  # two iterations of the default config
+
+
+class RunProbe:
+    """Instruments ``train.main``/``train_mnk`` for the distributed phase:
+    the update's collectives timed (``Collectives.timed``: a device sync
+    around each, on during the update only), their seconds and calls, each
+    iteration's wall and metrics."""
+
+    def __init__(self):
+        self.dp = None
+        self.update_s, self.update_calls, self.minibatches = 0.0, 0, 0
+        self.walls, self.metrics = [], []
+
+    def __enter__(self):
+        import torch
+
+        from rl_selfplay_mnk_tpu_torch import train
+        from rl_selfplay_mnk_tpu_torch.alg import ppo
+        from rl_selfplay_mnk_tpu_torch.parallel import mesh
+
+        self.saved = (train.data_parallel, ppo.PPOLearner.update, ppo.PPOLearner.learn)
+        data_parallel, update, learn = self.saved
+        probe = self
+
+        def keeping_dp(num_envs, device):
+            probe.dp = mesh.data_parallel(num_envs, device)
+            return probe.dp
+
+        def totals():
+            stats = probe.dp.coll.stats.values() if probe.dp is not None else []
+            return sum(c for c, _ in stats), sum(t for _, t in stats)
+
+        def timed_update(learner, *args, **kwargs):
+            calls0, s0 = totals()
+            if probe.dp is not None:
+                probe.dp.coll.timed = True
+            try:
+                out = update(learner, *args, **kwargs)
+            finally:
+                if probe.dp is not None:
+                    probe.dp.coll.timed = False
+            calls1, s1 = totals()
+            probe.update_calls += calls1 - calls0
+            probe.update_s += s1 - s0
+            probe.minibatches += learner.config.updates_per_iteration
+            return out
+
+        def timed_learn(learner, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = learn(learner, *args, **kwargs)
+            torch.cuda.synchronize()
+            probe.walls.append(time.perf_counter() - t0)
+            probe.metrics.append(metrics.scalars())
+            return metrics
+
+        train.data_parallel = keeping_dp
+        ppo.PPOLearner.update = timed_update
+        ppo.PPOLearner.learn = timed_learn
+        return self
+
+    def __exit__(self, *exc):
+        from rl_selfplay_mnk_tpu_torch import train
+        from rl_selfplay_mnk_tpu_torch.alg import ppo
+
+        train.data_parallel, ppo.PPOLearner.update, ppo.PPOLearner.learn = self.saved
+
+    def record(self) -> dict:
+        return {"walls": self.walls, "metrics": self.metrics,
+                "update_s": self.update_s, "update_calls": self.update_calls,
+                "minibatches": self.minibatches,
+                "stats": dict(self.dp.coll.stats) if self.dp is not None else {}}
+
+
+def check_collectives_identity(torch, dev):
+    """At world 1 every collective of ``parallel.mesh.Collectives`` gives
+    back its input's bits (on NCCL here)."""
+    from rl_selfplay_mnk_tpu_torch.parallel.mesh import Collectives
+
+    coll = Collectives(dev)
+    x = torch.randn(4099, device=dev)
+    for name, got in (("all_reduce", coll.all_reduce(x.clone())),
+                      ("reduce_scatter", coll.reduce_scatter(x.clone())),
+                      ("all_gather", coll.all_gather(x.clone())),
+                      ("broadcast", coll.broadcast(x.clone()))):
+        if not torch.equal(got, x):
+            raise AssertionError(f"{name} at world 1 on {coll.backend} changed its input")
+    return coll.backend
+
+
+def first_gradient(torch, path, dp=None):
+    """The first minibatch's gradient of the default config's learner (in
+    the layout of two shards) on the trajectory, weights and indices saved
+    at ``path``: over ``dp``'s ranks (this rank's rows; the gradient after
+    the ranks' mean) or on one rank; before the clip, as one f32 vector."""
+    from rl_selfplay_mnk_tpu_torch.alg import ppo
+    from rl_selfplay_mnk_tpu_torch.train import build_config, create_learner
+    from rl_selfplay_mnk_tpu_torch.utils.hardware import detect_hardware_config
+
+    saved = torch.load(path, weights_only=False)
+    config = build_config()
+    config["shard_groups"] = 2
+    learner = create_learner(config, detect_hardware_config("cuda:0"), dp)[0]
+    learner.model.load_state_dict(saved["state"])
+    rows = (lambda x: x) if dp is None else dp.shard.take
+    dev = learner.device
+    traj = {k: (v if dp is None else v[:, dp.shard.start:dp.shard.stop]).to(dev)
+            for k, v in saved["traj"].items()}
+    final = {k: rows(v).to(dev) for k, v in saved["final"].items()}
+    flats = ppo._update_prepare_impl(learner.model, learner.config, traj, final, dp)
+    world, rank = (1, 0) if dp is None else (dp.world, dp.rank)
+    idx = ppo.rank_indices(learner.config, saved["idx"].to(dev), world, rank)
+    grads = {}
+    clip = ppo.PPOOptimizer.clip
+
+    def recording(opt, watch=None):
+        if opt.dp is not None:
+            opt.reduce_grads()
+        grads["g"] = torch.cat([p.grad.detach().reshape(-1).float() for p in opt.params]).cpu()
+        opt.dp, dp_saved = None, opt.dp
+        try:
+            return clip(opt, watch)
+        finally:
+            opt.dp = dp_saved
+
+    ppo.PPOOptimizer.clip = recording
+    try:
+        ppo.minibatch_update(learner.model, learner.config, learner.optimizer, flats, idx[0],
+                             0.05, dp=dp)
+    finally:
+        ppo.PPOOptimizer.clip = clip
+    return grads["g"]
+
+
+def save_gradient_inputs(torch, path):
+    """One rollout of the default config's learner (in the layout of two
+    shards) against the random policy, its weights and one epoch's indices
+    over the whole batch, saved for ``first_gradient``."""
+    from rl_selfplay_mnk_tpu_torch.alg import ppo
+    from rl_selfplay_mnk_tpu_torch.selfplay.policies import RandomPolicy
+    from rl_selfplay_mnk_tpu_torch.train import build_config, create_learner
+    from rl_selfplay_mnk_tpu_torch.utils.hardware import detect_hardware_config
+
+    config = build_config()
+    config["shard_groups"] = 2
+    learner = create_learner(config, detect_hardware_config("cuda:0"))[0]
+    state = {k: v.detach().cpu().clone() for k, v in learner.model.state_dict().items()}
+    traj, _ = learner.rollout(RandomPolicy(torch.Generator(device="cuda:0").manual_seed(7)))
+    idx = ppo._minibatch_indices(learner.config, learner.generator, learner.device)
+    torch.save({"state": state, "traj": {k: v.cpu() for k, v in traj.items()},
+                "final": {k: v.cpu() for k, v in learner._obs.items()}, "idx": idx.cpu()}, path)
+
+
+def rank_entry(runs, workdir, check_identity=False, grad_inputs=None, start_file=None):
+    """A rank of the distributed phase: from a directory of its own, each
+    argv of ``runs`` through ``train.main`` (the user's command line), with
+    the launch counters set to 0 just before and read just after; returns
+    each run's counts, probe record and wall, the backend and, with
+    ``grad_inputs``, the first minibatch's all-reduced gradient on them.
+    With ``start_file`` it waits (started, joined and imported) until that
+    file exists."""
+    import os
+
+    import torch
+
+    from rl_selfplay_mnk_tpu_torch import train
+    from rl_selfplay_mnk_tpu_torch.parallel import mesh
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    own = os.path.join(workdir, f"rank{mesh.process_index()}")
+    os.makedirs(own, exist_ok=True)
+    os.chdir(own)
+    import torch.distributed as dist
+
+    out = {"backend": dist.get_backend(), "runs": []}
+    while start_file is not None and not os.path.exists(start_file):
+        time.sleep(0.05)
+    if check_identity:
+        check_collectives_identity(torch, torch.device("cuda:0"))
+    for argv in runs:
+        with RunProbe() as probe:
+            reset_launches()
+            t0 = time.perf_counter()
+            train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        out["runs"].append({"launches": launches, "wall": wall, **probe.record()})
+    if grad_inputs is not None:
+        dp = mesh.data_parallel(384, torch.device("cuda:0"))
+        out["grad"] = first_gradient(torch, grad_inputs, dp)
+    return out
+
+
+def same_export(a, b) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_distributed(torch, dev, tmp):
+    """The data-parallel entry on the card (``parallel/``, ``train.main
+    --multihost``), each rank started by ``parallel.launch``:
+
+    (a) world 1 on NCCL (a process group of one), the default config for 2
+        iterations, against the same command without a process group run
+        meanwhile in this process: the same bits (the final exports'
+        bytes), and every collective at world 1 gives back its input;
+    (b) world 2, two ranks sharing the card over gloo (collectives staged
+        through host memory), 2 iterations each at 384 envs: ``resnet_b_s``
+        (the replicated learner) and ``transformer_b_s --zero-opt`` (the
+        grouped shuffle; ``learner/zero_sharded`` = 1); finite losses on
+        both ranks, exports and metric streams written by rank 0 alone, K1
+        and K2 (K1, K5, K3, K4) launched on every rank; then the first
+        minibatch's all-reduced gradient of the default config's learner
+        against one rank's on the same trajectory, weights and indices in
+        the same layout (``shard_groups`` 2), within ``DIST_GRAD_RTOL``;
+    and prints the iterations' walls and the collectives' time a minibatch
+    (device-synchronised timing, ``Collectives(timed=True)``) beside the
+    card."""
+    import os
+
+    from rl_selfplay_mnk_tpu_torch import train
+    from rl_selfplay_mnk_tpu_torch.parallel.launch import RankGroup
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    base = ["--total-steps", str(DIST_STEPS), "--device", "cuda:0"]
+
+    w1_argv = base + ["--run-name", "dist_w1", "--multihost", "--num-processes", "1",
+                      "--process-id", "0"]
+    w1 = RankGroup("chip_smoke:rank_entry", 1, dict(runs=[w1_argv], workdir=f"{tmp}/dist_w1",
+                                                    check_identity=True),
+                   timeout=300, device="cuda:0")
+    world2 = [
+        base + ["--run-name", "dist_resnet"],
+        base + ["--run-name", "dist_zero", "--arch", "transformer_b_s", "--zero-opt"],
+    ]
+    launched = {"dist_resnet": ("env_step", "resblock"),
+                "dist_zero": ("env_step", "attn_lane_slice_fwd", "attn_folded_fwd",
+                              "attn_folded_bwd")}
+    # Each rank its own argvs (the launcher passes one kwargs; a rank picks
+    # its list by its index). The two ranks start, join and import now, and
+    # train once world 1 is done (``start_file``), so that no two runs share
+    # the card.
+    ranks = [[argv + ["--multihost", "--num-processes", "2", "--process-id", str(r)]
+              for argv in world2] for r in range(2)]
+    grad_inputs = f"{tmp}/dist_grad_inputs.pt"
+    start_file = f"{tmp}/dist_world2_go"
+    group = RankGroup("chip_smoke:rank_entry_of", 2, dict(per_rank=ranks,
+                                                          workdir=f"{tmp}/dist_w2",
+                                                          grad_inputs=grad_inputs,
+                                                          start_file=start_file),
+                      timeout=400, device="cuda:0")
+    cwd = os.getcwd()
+    os.makedirs(f"{tmp}/dist_nopg", exist_ok=True)
+    os.chdir(f"{tmp}/dist_nopg")
+    try:
+        train.main(base + ["--run-name", "dist_nopg"])
+        os.chdir(cwd)
+        save_gradient_inputs(torch, grad_inputs)
+        g1 = first_gradient(torch, grad_inputs)
+        (w1_out,), _ = w1.wait()
+        open(start_file, "w").close()
+        outs, _ = group.wait()
+    finally:
+        os.chdir(cwd)
+        w1.close()
+        group.close()
+    if w1_out["backend"] != "nccl":
+        raise AssertionError(f"world 1 on the card took {w1_out['backend']}, not nccl")
+    export = "models/{}/model_00002.msgpack"
+    w1_export = f"{tmp}/dist_w1/rank0/" + export.format("dist_w1")
+    nopg_export = f"{tmp}/dist_nopg/" + export.format("dist_nopg")
+    if not same_export(w1_export, nopg_export):
+        raise AssertionError("world 1 on NCCL and the run without a process group differ")
+    print(f"distributed world 1 (nccl, a group of one): the same bits as without a process "
+          f"group; iteration walls {[round(w, 3) for w in w1_out['runs'][0]['walls']]} s; "
+          f"collectives at world 1 give back their inputs")
+    if any(o["backend"] != "gloo" for o in outs):
+        raise AssertionError(f"two ranks on one card took {[o['backend'] for o in outs]}")
+    if os.listdir(f"{tmp}/dist_w2/rank1"):
+        raise AssertionError(f"rank 1 wrote {os.listdir(f'{tmp}/dist_w2/rank1')}")
+    for i, argv in enumerate(world2):
+        name = argv[argv.index("--run-name") + 1]
+        rank0 = f"{tmp}/dist_w2/rank0"
+        if not os.path.exists(f"{rank0}/" + export.format(name)):
+            raise AssertionError(f"{name}: rank 0 wrote no final export")
+        records = [json.loads(line) for line in open(f"{rank0}/runs/{name}.jsonl")]
+        flag = [r["learner/zero_sharded"] for r in records if "learner/zero_sharded" in r]
+        if flag != [1 if name == "dist_zero" else 0]:
+            raise AssertionError(f"{name}: learner/zero_sharded {flag}")
+        for r, out in enumerate(outs):
+            run = out["runs"][i]
+            for m in run["metrics"]:
+                if not all(math.isfinite(m[k]) for k in ("actor_loss", "critic_loss",
+                                                          "entropy_loss", "grad_norm")):
+                    raise AssertionError(f"{name} rank {r}: metrics not finite: {m}")
+            if len(run["metrics"]) != 2:
+                raise AssertionError(f"{name} rank {r}: {len(run['metrics'])} iterations")
+            for kernel in launched[name]:
+                if run["launches"][kernel] <= 0:
+                    raise AssertionError(f"{name} rank {r}: kernel {kernel} not launched")
+            per_mb = run["update_s"] / max(run["minibatches"], 1)
+            calls = run["update_calls"] / max(run["minibatches"], 1)
+            print(f"distributed world 2 {name} rank {r}: iteration walls "
+                  f"{[round(w, 3) for w in run['walls']]} s, collectives in the update "
+                  f"{per_mb * 1e3:.3f} ms a minibatch ({calls:.1f} calls), by op "
+                  f"{json.dumps({k: [c, round(t, 4)] for k, (c, t) in run['stats'].items()})}, "
+                  f"launches {json.dumps({k: v for k, v in run['launches'].items() if v})}")
+    g2 = [o["grad"] for o in outs]
+    if not torch.equal(g2[0], g2[1]):
+        raise AssertionError("the ranks' all-reduced gradients differ")
+    rel = ((g2[0] - g1).norm() / g1.norm()).item()
+    if not rel <= DIST_GRAD_RTOL:
+        raise AssertionError(f"the first minibatch's all-reduced gradient is {rel:.3e} of its "
+                             f"norm from one rank's (limit {DIST_GRAD_RTOL:.3e})")
+    print(f"distributed: first minibatch gradient, two ranks against one on the same "
+          f"trajectory in the same layout: ||g2 - g1|| / ||g1|| = {rel:.3e} (limit 2^-7)")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f}s on {card}")
+
+
+def rank_entry_of(per_rank, workdir, grad_inputs=None, start_file=None):
+    """``rank_entry`` with this rank's own list of argvs."""
+    from rl_selfplay_mnk_tpu_torch.parallel.mesh import process_index
+
+    return rank_entry(per_rank[process_index()], workdir, grad_inputs=grad_inputs,
+                      start_file=start_file)
+
+
 def read_csv(path):
     import csv
 
@@ -1356,6 +1699,7 @@ def main() -> int:
         label_bench = "bench 9x9x5 8192 envs"
         paths[label_bench] = phase_bench(torch, label_bench)
         phase_fused(torch, dev, tmp, default_pair)
+        phase_distributed(torch, dev, tmp)
 
         # The serving path.
         label_9 = "tournament 9x9x5"

@@ -41,6 +41,14 @@ permutations), ``minibatch`` (``ppo_epochs * num_minibatches`` times) and
 The piecewise graphs and the eager pieces are the same code on the same
 buffers, so the two dispatches give the same bits wherever two eager runs
 do.
+
+Over the ranks of a data-parallel world (the learner's ``dp``) the pieces
+run on the rank's envs with the learner's collectives (``alg/ppo.py``), the
+replicated ``DeviceOptimizer`` or, as the JAX package allows it with its
+step dispatch, the ZeRO-1 learner (``alg/zero_epochs.ZeroOptimizer`` with
+its device lr); the finished-episode sums are all-reduced in ``finish``.
+Only the eager dispatch runs there: ``capture`` refuses a world of more
+than one rank (a gloo collective cannot be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -61,13 +69,14 @@ from ..selfplay.opponent_pool import (
 from ..selfplay.policies import NNPolicy
 from ..selfplay.wrapper import SelfPlayState
 from ..env.mnk_env import EnvState
+from ..parallel.mesh import shard_batched
 from .ppo import (
     _METRIC_KEYS,
-    DeviceOptimizer,
     PPOLearner,
     _minibatch_indices,
     _update_prepare_impl,
     minibatch_update,
+    rank_indices,
     rollout_buffers,
     rollout_step,
 )
@@ -83,10 +92,11 @@ class FusedTrainer:
     """The fused trainer's state, on fixed device buffers, and the five
     pieces of an iteration.
 
-    ``learner`` brings the model, the config, a ``DeviceOptimizer``, the
-    generator (draws, the agent's sampling, side draws, permutations) and
-    its env state (``reset_envs`` done), which is copied into the trainer's
-    own buffers.
+    ``learner`` brings the model, the config, an optimizer with its lr on
+    the device (``DeviceOptimizer``, or ``ZeroOptimizer`` over ranks), the
+    generator (draws, the agent's sampling, side draws, permutations), its
+    ``dp`` and its env state (``reset_envs`` done), which is copied into the
+    trainer's own buffers.
     ``policy_generator`` draws the opponent's moves. ``entropy_fn(it)`` and
     ``lr_fn(count)`` map device integers to device float32 (``schedules``).
     ``max_block`` bounds the iterations of a block (the rows of ``stacked``).
@@ -97,9 +107,9 @@ class FusedTrainer:
                  insert_interval: int = 20, matchmaking: Optional[str] = None,
                  pfsp_power: float = 2.0, league_ema: float = 0.3, eviction: str = "fifo",
                  max_block: int = 1):
-        if not isinstance(learner.optimizer, DeviceOptimizer):
-            raise ValueError("the fused trainer needs a DeviceOptimizer (lr and step counts on "
-                             "the device)")
+        if not isinstance(getattr(learner.optimizer, "lr", None), torch.Tensor):
+            raise ValueError("the fused trainer needs an optimizer with its lr on the device "
+                             "(DeviceOptimizer or ZeroOptimizer(lr=...))")
         if learner.config.fin_blocks:
             raise ValueError("the fused trainer does not implement mixed-opponent batches")
         self.model = learner.model
@@ -108,6 +118,9 @@ class FusedTrainer:
         self.generator = learner.generator
         self.policy_generator = policy_generator
         self.device = dev = learner.device
+        self.dp = dp = learner.dp
+        self.shard = None if dp is None else dp.shard
+        world, self.rank_of = (1, (1, 0)) if dp is None else (dp.world, (dp.world, dp.rank))
         self.pool = pool
         self.entropy_fn, self.lr_fn = entropy_fn, lr_fn
         self.pool_prob, self.insert_interval = pool_prob, insert_interval
@@ -115,6 +128,7 @@ class FusedTrainer:
         self.eviction = eviction
         self.opponent = snapshot(self.model)
         self.opponent_policy = NNPolicy(eval_apply, self.opponent, policy_generator)
+        self.opponent_policy.shard = self.shard
 
         sp = learner._sp_state
         self.sp = SelfPlayState(
@@ -123,13 +137,17 @@ class FusedTrainer:
         self.obs = {k: v.clone() for k, v in learner._obs.items()}
         self.ep_rew, self.ep_len = learner._ep_rew.clone(), learner._ep_len.clone()
 
-        self.traj, self.fin = rollout_buffers(cfg, dev)
+        self.traj, self.fin = rollout_buffers(cfg, dev, learner.num_envs)
         m, n, a = cfg.env.m, cfg.env.n, cfg.env.num_actions
+        rows = cfg.total_batch // world  # this rank's samples
         if cfg.shuffle == "grouped":
-            lead = (cfg.total_batch // cfg.group_size, cfg.group_size)
-            per_minibatch = cfg.batch_size // cfg.group_size
+            lead = (rows // cfg.group_size, cfg.group_size)
+            mb_groups = cfg.batch_size // cfg.group_size
+            shards = cfg.shard_groups
+            per_minibatch = ((shards // world, mb_groups // shards) if shards > 1
+                             else (mb_groups,))
         else:
-            lead, per_minibatch = (cfg.total_batch,), cfg.batch_size
+            lead, per_minibatch = (rows,), (cfg.batch_size // world,)
         self.flats = {
             "obs": torch.empty(lead + (2, m, n), dtype=torch.uint8, device=dev),
             "mask": torch.empty(lead + (a,), dtype=torch.bool, device=dev),
@@ -138,7 +156,7 @@ class FusedTrainer:
             "returns": torch.empty(lead, dtype=torch.float32, device=dev),
             "adv": torch.empty(lead, dtype=torch.float32, device=dev),
         }
-        self.perms = torch.empty((cfg.ppo_epochs * cfg.num_minibatches, per_minibatch),
+        self.perms = torch.empty((cfg.ppo_epochs * cfg.num_minibatches,) + per_minibatch,
                                  dtype=torch.int64, device=dev)
 
         def counter(shape=(1,)):
@@ -184,7 +202,7 @@ class FusedTrainer:
         """One self-play step into row ``t`` of the trajectory."""
         sp, obs, ep_rew, ep_len = rollout_step(
             self.model, self.config, self.opponent_policy, self.sp, self.obs, self.ep_rew,
-            self.ep_len, self.traj, self.fin, self.t, self.generator, noise, sides)
+            self.ep_len, self.traj, self.fin, self.t, self.generator, noise, sides, self.shard)
         for dst, src in zip((*self.sp.env, self.sp.agent_side, self.sp.pending_resets),
                             (*sp.env, sp.agent_side, sp.pending_resets)):
             dst.copy_(src)
@@ -198,12 +216,18 @@ class FusedTrainer:
     def prepare(self, epoch_indices=None) -> None:
         """Bootstrap value, GAE, normalisation and flatten into the flat
         buffers, and every epoch's permutation (``epoch_indices`` injects
-        them: one (num_minibatches, rows) tensor an epoch)."""
-        for k, v in _update_prepare_impl(self.model, self.config, self.traj, self.obs).items():
+        them: one tensor an epoch over the whole batch, as
+        ``_minibatch_indices`` draws it)."""
+        for k, v in _update_prepare_impl(self.model, self.config, self.traj, self.obs,
+                                         self.dp).items():
             self.flats[k].copy_(v)
         if epoch_indices is None:
-            epoch_indices = [_minibatch_indices(self.config, self.generator, self.device)
+            epoch_indices = [_minibatch_indices(self.config, self.generator, self.device,
+                                                *self.rank_of)
                              for _ in range(self.config.ppo_epochs)]
+        else:
+            epoch_indices = [rank_indices(self.config, idx, *self.rank_of)
+                             for idx in epoch_indices]
         self.perms.copy_(torch.cat(list(epoch_indices)))
         self.sums.zero_()
         self.mb.zero_()
@@ -212,7 +236,7 @@ class FusedTrainer:
         """The update on minibatch ``mb`` of the permutations."""
         rows = self.perms.index_select(0, self.mb)[0]
         metrics = minibatch_update(self.model, self.config, self.optimizer, self.flats, rows,
-                                   self.ent)
+                                   self.ent, dp=self.dp)
         with torch.no_grad():
             self.sums += metrics
             self.mb.add_(1)
@@ -223,6 +247,8 @@ class FusedTrainer:
         insert_interval == 0``) and the metrics row, written to row ``row``
         of ``stacked``. Returns the row."""
         pool, fin = self.pool, self.fin
+        if self.dp is not None:
+            self.dp.coll.all_reduce(fin)
         if self.matchmaking:
             mean_rew = torch.where(fin[2] > 0, fin[0] / torch.clamp(fin[2], min=1.0),
                                    torch.zeros_like(fin[0]))
@@ -241,13 +267,14 @@ class FusedTrainer:
         """The five pieces in order, eagerly; returns the metrics row
         (``METRIC_KEYS``) on the device, unread. ``draws`` injects the
         iteration's randomness: ``historical``, ``slot``, ``noise`` (T, E, A)
-        and ``sides`` (T, E) as ``rollout_impl`` takes them, and
-        ``epoch_indices``."""
+        and ``sides`` (T, E) as ``rollout_impl`` takes them (over the whole
+        batch), and ``epoch_indices``."""
         d = draws or {}
+        rows = (lambda x: x) if self.shard is None else self.shard.take
         self.draw(d.get("historical"), d.get("slot"))
         for t in range(self.config.n_steps):
-            self.step(d["noise"][t] if "noise" in d else None,
-                      d["sides"][t] if "sides" in d else None)
+            self.step(rows(d["noise"][t]) if "noise" in d else None,
+                      rows(d["sides"][t]) if "sides" in d else None)
         self.prepare(d.get("epoch_indices"))
         for _ in range(self.config.updates_per_iteration):
             self.minibatch()
@@ -278,6 +305,44 @@ class FusedTrainer:
         out.update({f"obs/{k}": v for k, v in self.obs.items()})
         return out
 
+    _ENV_KEYS = ("agent_side", "pending_resets", "ep_rew", "ep_len")
+
+    def _is_env(self, key: str) -> bool:
+        return key.startswith(("env/", "obs/")) or key in self._ENV_KEYS
+
+    def global_state(self) -> dict:
+        """``save_state`` with the env rows of every rank and, for the ZeRO
+        learner, the whole flat moments (every rank calls it): a checkpoint
+        that any world size resumes (``load_global_state``)."""
+        state = self.save_state()
+        if self.dp is None:
+            return state
+        coll, tensors = self.dp.coll, state["tensors"]
+        for k, v in tensors.items():
+            if self._is_env(k):
+                tensors[k] = self.dp.gather_rows(v.to(self.device))
+            elif k in ("optimizer/zero/exp_avg", "optimizer/zero/exp_avg_sq"):
+                full = coll.all_gather(v.to(self.device))
+                tensors[k] = full[:self.optimizer.layout.total].cpu()
+        return state
+
+    def load_global_state(self, state: dict) -> None:
+        """Put ``global_state``'s checkpoint back: this rank's env rows and
+        ZeRO chunk of it."""
+        if self.dp is None:
+            return self.load_state(state)
+        world, rank = self.rank_of
+        tensors = {}
+        for k, v in state["tensors"].items():
+            if self._is_env(k):
+                v = shard_batched(v, world, rank, batch_size=self.config.num_envs)
+            elif k in ("optimizer/zero/exp_avg", "optimizer/zero/exp_avg_sq"):
+                layout = self.optimizer.layout
+                v = torch.nn.functional.pad(v, (0, layout.padded - layout.total))
+                v = v[self.optimizer.lo:self.optimizer.hi]
+            tensors[k] = v
+        self.load_state({**state, "tensors": tensors})
+
     def save_state(self, device="cpu") -> dict:
         """A copy of the state (``state_tensors`` and both generators)."""
         return {"tensors": {k: v.detach().to(device, copy=True)
@@ -306,6 +371,9 @@ class FusedTrainer:
         if self.device.type != "cuda":
             raise ValueError("CUDA graphs need the card: the scan dispatch does not run on "
                              f"{self.device}")
+        if self.dp is not None:
+            raise ValueError("the scan dispatch is not run over more than one rank (a gloo "
+                             "collective cannot be captured); use fused_dispatch='step'")
         saved = self.save_state(self.device)
         self.row.zero_()  # the warm-up writes a metrics row
         current = torch.cuda.current_stream(self.device)

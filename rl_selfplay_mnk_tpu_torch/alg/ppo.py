@@ -1,6 +1,7 @@
 """PPO self-play learner: rollout, GAE and the clipped-surrogate update.
 
-Counterpart of the JAX package's ``alg/ppo.py`` for one device:
+Counterpart of the JAX package's ``alg/ppo.py``, on one device or as one
+rank of a data-parallel world (below):
 
   * ``rollout_impl``: ``n_steps`` train-mode forwards (batch-statistic
     BatchNorm, running statistics updated in place), masked gumbel-max
@@ -9,8 +10,11 @@ Counterpart of the JAX package's ``alg/ppo.py`` for one device:
   * ``_update_prepare_impl``: bootstrap value (train-mode forward), GAE,
     advantage normalisation over the whole buffer (ddof=1), and the
     minibatch layout flatten.
-  * ``_minibatch_indices``: the ``global`` row shuffle and the ``grouped``
-    shuffle of contiguous ``group_size`` chunks (time-major flatten).
+  * ``_minibatch_indices``: the ``global`` row shuffle, the ``grouped``
+    shuffle of contiguous ``group_size`` chunks (time-major flatten; with
+    ``shard_groups`` d > 1 shard-major, each shard permuting its own
+    groups), and the ``tiled`` shuffle (row permutations within each of d
+    env blocks).
   * the epoch loss: clipped surrogate, 0.5 * value MSE, entropy bonus, with
     clip fraction, approx-KL and explained variance.
   * ``PPOOptimizer``: global-norm clip 0.5, then AdamW (eps 1e-5, weight
@@ -34,6 +38,21 @@ Every stochastic step takes its draws from an explicit ``torch.Generator``
 or from the caller: sampling noise and side draws (``rollout_impl``'s
 ``draws``) and minibatch indices (``epoch_indices``).
 
+Data parallel (``dp``, a ``parallel.mesh.DataParallel``, for a world of
+more than one rank; the JAX package's env-sharded mesh): a rank holds
+envs ``dp.shard`` and computes what GSPMD computes for the whole batch.
+Draws and injected draws are global tensors of which the rank keeps its
+rows (its columns of the minibatch indices); BatchNorm's statistics are
+the ranks' (``models.common.BatchNorm.stat_sync``); the advantage
+normalisation is over the whole buffer (ddof=1); each minibatch's
+gradient is all-reduced once as one flat vector and averaged over the
+ranks before the unchanged clip and AdamW (or, with ``zero_update``,
+reduce-scattered: ``alg/zero_epochs.py``); the metrics are global (the
+explained variance from the minibatch's global variance of the returns);
+the finished-episode sums (or the per-block sums) are all-reduced once a
+rollout. ``shard_groups`` (the layout) is a multiple of the world size: a
+world of one rank given the layout of d trains as d ranks do.
+
 Timing: ``rollout_time`` covers sampling and env stepping, ``learn_time``
 bootstrap + GAE + update; ``fps = n_steps * num_envs / rollout_time``.
 """
@@ -47,6 +66,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..env.mnk_env import EnvConfig
+from ..models.common import BatchNorm
 from ..models.convert import flax_param_paths
 from ..models.registry import train_apply
 from ..ops.masked import entropy as masked_entropy
@@ -62,7 +82,13 @@ class PPOConfig:
     ``shuffle``: "global" = one row permutation of the (num_envs * n_steps)
     batch per epoch; "grouped" = a permutation of contiguous groups of
     ``group_size`` samples (adjacent envs at one timestep), each minibatch
-    gathering ``batch_size / group_size`` whole groups.
+    gathering ``batch_size / group_size`` whole groups; with ``shard_groups``
+    d > 1 the flatten is shard-major and each of the d env blocks permutes
+    its own groups, a minibatch taking ``batch_size / group_size / d`` of
+    each; "tiled" (d > 1) = independent row permutations within each of
+    the d env blocks, a minibatch taking ``batch_size / d`` rows of each.
+    ``num_envs`` and ``batch_size`` are global; ``zero_update`` selects the
+    ZeRO-1 learner (``alg/zero_epochs.py``) with its clip ``zero_clip_norm``.
     """
 
     env: EnvConfig
@@ -75,7 +101,10 @@ class PPOConfig:
     batch_size: int = 64
     value_coef: float = 0.5
     shuffle: str = "global"
+    shard_groups: int = 1
     group_size: int = 128
+    zero_update: bool = False
+    zero_clip_norm: float = 0.5
     # Signed-log gradient histograms on watch iterations: this many
     # magnitude bins a sign plus a near-zero bin; 0 = norms only.
     watch_hist_bins: int = 0
@@ -191,6 +220,23 @@ class GradWatch:
             self.hist.index_add_(0, grad_hist_index(flat, self.bins) + self.offsets, self.ones)
         self.updates += 1
 
+    def add_shard(self, gshard: torch.Tensor, segments: torch.Tensor, coll) -> None:
+        """The ZeRO learner's update: ``gshard`` is this rank's chunk of the
+        flat gradient, ``segments`` each element's leaf (``len(names)`` for
+        the padding); the leaves' square sums and counts are summed over
+        the ranks."""
+        n = len(self.names)
+        sq = torch.zeros((n + 1,), dtype=torch.float32, device=gshard.device)
+        sq.index_add_(0, segments, gshard.square())
+        self.sq += coll.all_reduce(sq)[:n]
+        if self.bins:
+            nb = 2 * self.bins + 1
+            hist = torch.zeros(((n + 1) * nb,), dtype=torch.int64, device=gshard.device)
+            idx = grad_hist_index(gshard, self.bins) + segments * nb
+            hist.index_add_(0, idx, torch.ones_like(idx))
+            self.hist += coll.all_reduce(hist)[:n * nb]
+        self.updates += 1
+
     def fetch(self) -> dict:
         """``gradients/<leaf>/norm``: the RMS over the updates of the leaf's
         gradient norm; ``gradients/<leaf>/hist``: the counts over every
@@ -230,6 +276,7 @@ class PPOOptimizer:
         self.lr_schedule = lr_schedule
         self.max_grad_norm = max_grad_norm
         self.count = 0
+        self.dp = None  # a DataParallel: gradients averaged over its ranks
         self.adamw = torch.optim.AdamW(
             self.params, lr=lr_schedule(0), eps=eps, weight_decay=weight_decay
         )
@@ -237,10 +284,21 @@ class PPOOptimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def reduce_grads(self) -> None:
+        """Data parallel: each gradient becomes the mean over the ranks, by
+        one all-reduce of the flat gradient."""
+        grads = [p.grad for p in self.params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        self.dp.coll.all_reduce(flat).div_(self.dp.world)
+        for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(f.view_as(g))
+
     def clip(self, watch: Optional[GradWatch] = None) -> torch.Tensor:
         """Scale the gradients to the global norm ``max_grad_norm`` where
         they exceed it; returns the pre-clip norm. ``watch`` takes the
-        gradients before the clip."""
+        gradients before the clip (and after the ranks' mean)."""
+        if self.dp is not None:
+            self.reduce_grads()
         grads = [p.grad for p in self.params]
         norms = torch._foreach_norm(grads)
         if watch is not None:
@@ -275,6 +333,7 @@ class DeviceOptimizer(PPOOptimizer):
                  weight_decay: float = 0.01):
         self.params = [p for p in params if p.requires_grad]
         self.max_grad_norm = max_grad_norm
+        self.dp = None
         device = self.params[0].device
         capturable = device.type == "cuda"
         self.lr = torch.full((), lr, dtype=torch.float32, device=device)
@@ -304,10 +363,11 @@ class DeviceOptimizer(PPOOptimizer):
 # ---------------------------------------------------------------------------
 
 
-def rollout_buffers(config: PPOConfig, device):
-    """The trajectory buffers, a dict of (T, E, ...) tensors, and the
-    finished-episode sums: (3,), or (3, fin_blocks)."""
-    t_len, e = config.n_steps, config.num_envs
+def rollout_buffers(config: PPOConfig, device, num_envs: Optional[int] = None):
+    """The trajectory buffers, a dict of (T, E, ...) tensors (E =
+    ``num_envs``, a rank's envs, default all), and the finished-episode
+    sums: (3,), or (3, fin_blocks)."""
+    t_len, e = config.n_steps, num_envs or config.num_envs
     m, n, a = config.env.m, config.env.n, config.env.num_actions
     traj = {
         "obs": torch.empty((t_len, e, 2, m, n), dtype=torch.uint8, device=device),
@@ -335,19 +395,36 @@ def _write_row(buf: torch.Tensor, t, value: torch.Tensor) -> None:
 def rollout_step(model, config: PPOConfig, opponent, sp_state, obs: dict, ep_rew: torch.Tensor,
                  ep_len: torch.Tensor, traj: dict, fin: torch.Tensor, t,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[torch.Tensor] = None, sides: Optional[torch.Tensor] = None):
+                 noise: Optional[torch.Tensor] = None, sides: Optional[torch.Tensor] = None,
+                 shard=None):
     """One step of ``rollout_impl``: writes row ``t`` of ``traj`` (an int, or
     a (1,) int64 tensor on the device, the fused trainer's step counter) and
     adds the episodes that finished to ``fin``, in place. ``noise`` (E, A)
-    and ``sides`` (E,) inject the step's draws. Returns (sp_state, obs,
-    ep_rew, ep_len)."""
+    and ``sides`` (E,) inject the step's draws (this rank's rows). With
+    ``shard`` (a rank's ``EnvShard``) the draws are the rank's rows of draws
+    over the whole batch, and the block sums go to the global blocks.
+    Returns (sp_state, obs, ep_rew, ep_len)."""
     blocks = config.fin_blocks
 
     def finsum(x):  # block i = envs [i E / blocks, (i + 1) E / blocks)
-        return x.reshape(blocks, -1).sum(1) if blocks else x.sum()
+        if not blocks:
+            return x.sum()
+        if shard is None:
+            return x.reshape(blocks, -1).sum(1)
+        per, out = shard.total // blocks, x.new_zeros((blocks,))
+        for i in range(blocks):
+            lo, hi = max(i * per, shard.start), min((i + 1) * per, shard.stop)
+            if lo < hi:
+                out[i] = x[lo - shard.start:hi - shard.start].sum()
+        return out
 
     logits, value = train_apply(model, obs["observation"])
     mlogits = mask_logits(logits, obs["action_mask"])
+    if shard is not None:
+        if noise is None:
+            noise = shard.uniform(mlogits.shape[1:], generator, mlogits.device)
+        if sides is None:
+            sides = shard.sides(generator, mlogits.device)
     actions = masked_sample(mlogits, generator, noise)
     logp = log_prob(mlogits, actions)
     _write_row(traj["obs"], t, obs["observation"])
@@ -380,66 +457,142 @@ def rollout_impl(
     ep_len: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     draws: Optional[dict] = None,
+    dp=None,
 ):
-    """Collect ``n_steps`` self-play steps.
+    """Collect ``n_steps`` self-play steps (``dp``: this rank's envs, the
+    sums all-reduced).
 
     ``draws`` optionally injects the step's randomness: ``"noise"``
     (T, E, A) uniforms for the agent's sampling and ``"sides"`` (T, E) side
-    draws for auto-resets.
+    draws for auto-resets, over the whole batch.
 
     Returns (sp_state, obs, traj, fin, (ep_rew, ep_len)): traj is a dict of
     (T, E, ...) tensors, fin = (finished reward sum, finished length sum,
     finished count), a (3,) tensor, or (3, fin_blocks) with a sum for each
     block of envs.
     """
-    traj, fin = rollout_buffers(config, ep_rew.device)
+    traj, fin = rollout_buffers(config, ep_rew.device, ep_rew.shape[0])
+    shard = None if dp is None else dp.shard
+    rows = (lambda x: x) if shard is None else shard.take
     for t in range(config.n_steps):
         sp_state, obs, ep_rew, ep_len = rollout_step(
             model, config, opponent, sp_state, obs, ep_rew, ep_len, traj, fin, t, generator,
-            draws["noise"][t] if draws is not None else None,
-            draws["sides"][t] if draws is not None else None,
+            rows(draws["noise"][t]) if draws is not None else None,
+            rows(draws["sides"][t]) if draws is not None else None,
+            shard,
         )
+    if dp is not None:
+        dp.coll.all_reduce(fin)
     return sp_state, obs, traj, fin, (ep_rew, ep_len)
 
 
 def _minibatch_indices(
-    config: PPOConfig, generator: Optional[torch.Generator], device
+    config: PPOConfig, generator: Optional[torch.Generator], device, world: int = 1,
+    rank: int = 0,
 ) -> torch.Tensor:
-    """One epoch's shuffled indices: (num_minibatches, batch_size) rows for
-    "global", (num_minibatches, batch_size // group_size) groups for
-    "grouped"."""
+    """One epoch's shuffled indices, drawn over the whole batch, as
+    ``rank_indices`` gives rank ``rank`` of ``world`` its part of them.
+
+    Over the whole batch: (num_minibatches, batch_size) rows for "global"
+    and "tiled" (env-major row ids), (num_minibatches, batch_size //
+    group_size) groups for "grouped", and (num_minibatches, d, batch_size //
+    group_size // d) each shard's own group ids for "grouped" over
+    ``shard_groups`` d > 1 (the JAX package's layouts)."""
+    d = config.shard_groups
+    nm = config.num_minibatches
     if config.shuffle == "grouped":
         n_groups = config.total_batch // config.group_size
-        perm = torch.randperm(n_groups, generator=generator, device=device)
-        return perm.reshape(config.num_minibatches, config.batch_size // config.group_size)
-    if config.shuffle != "global":
-        raise ValueError(f"unsupported shuffle {config.shuffle!r} on one device")
-    perm = torch.randperm(config.total_batch, generator=generator, device=device)
-    return perm.reshape(config.num_minibatches, config.batch_size)
+        mb_groups = config.batch_size // config.group_size
+        if d > 1:
+            if n_groups % d or mb_groups % d:
+                raise ValueError(f"grouped shuffle over {d} shards needs group counts divisible "
+                                 f"by the shard count (total {n_groups}, per minibatch "
+                                 f"{mb_groups})")
+            per = n_groups // d
+            perms = torch.stack([torch.randperm(per, generator=generator, device=device)
+                                 for _ in range(d)])
+            idx = perms.reshape(d, nm, mb_groups // d).transpose(0, 1)
+        else:
+            perm = torch.randperm(n_groups, generator=generator, device=device)
+            idx = perm.reshape(nm, mb_groups)
+    elif config.shuffle == "tiled" and d > 1:
+        n = config.total_batch
+        if n % d or config.batch_size % d:
+            raise ValueError(f"tiled shuffle over {d} blocks needs the batch sizes divisible by "
+                             f"it ({n}, {config.batch_size})")
+        per_group = n // d
+        perms = torch.stack([torch.randperm(per_group, generator=generator, device=device)
+                             for _ in range(d)])
+        perms = perms + torch.arange(d, device=device)[:, None] * per_group
+        idx = perms.reshape(d, nm, config.batch_size // d).transpose(0, 1).reshape(
+            nm, config.batch_size)
+    elif config.shuffle in ("global", "tiled"):
+        perm = torch.randperm(config.total_batch, generator=generator, device=device)
+        idx = perm.reshape(nm, config.batch_size)
+    else:
+        raise ValueError(f"unknown shuffle {config.shuffle!r}")
+    return rank_indices(config, idx, world, rank)
+
+
+def rank_indices(config: PPOConfig, idx: torch.Tensor, world: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of an epoch's indices over the whole batch
+    (``_minibatch_indices``' layouts), in its own rows: its shards' columns
+    for the sharded "grouped" (num_minibatches, d / world, groups), its
+    blocks' rows, less its first row, for "tiled" (num_minibatches,
+    batch_size / world). One rank keeps them all."""
+    if world == 1:
+        return idx
+    d = config.shard_groups
+    if d % world:
+        raise ValueError(f"shard_groups ({d}) must be a multiple of the world size ({world})")
+    if config.shuffle == "grouped" and d > 1:
+        k = d // world
+        return idx[:, rank * k:(rank + 1) * k]
+    if config.shuffle == "tiled" and d > 1:
+        cols = config.batch_size // world
+        return idx[:, rank * cols:(rank + 1) * cols] - rank * (config.total_batch // world)
+    raise ValueError(f"the {config.shuffle!r} shuffle over one shard draws rows from every "
+                     f"rank: use 'grouped' or 'tiled' over {world} ranks")
 
 
 @torch.no_grad()
-def _update_prepare_impl(model, config: PPOConfig, traj: dict, final_obs: dict) -> dict:
+def _update_prepare_impl(model, config: PPOConfig, traj: dict, final_obs: dict,
+                         dp=None) -> dict:
     """Bootstrap value, GAE, buffer-global advantage normalisation and the
-    minibatch-layout flatten."""
+    minibatch-layout flatten (of this rank's envs, with ``dp``)."""
     _, last_value = train_apply(model, final_obs["observation"])
     advantages, returns = compute_gae(
         traj["rewards"], traj["values"], traj["dones"], last_value[:, 0],
         config.gamma, config.gae_lambda,
     )
+    world = 1 if dp is None else dp.world
+    t_len, e = traj["rewards"].shape
     if config.shuffle == "grouped":
         if config.total_batch % config.group_size or config.batch_size % config.group_size:
             raise ValueError("grouped shuffle: group_size must divide the batch sizes")
-        n_groups = config.total_batch // config.group_size
+        n_groups = t_len * e // config.group_size
+        shards = config.shard_groups // world
 
-        def flat(x):  # time-major: a group = adjacent envs at one timestep
-            return x.reshape((n_groups, config.group_size) + tuple(x.shape[2:]))
+        if shards > 1:
+
+            def flat(x):  # shard-major, then time-major within each shard
+                y = x.reshape((t_len, shards, e // shards) + tuple(x.shape[2:])).transpose(0, 1)
+                return y.reshape((n_groups, config.group_size) + tuple(x.shape[2:]))
+        else:
+
+            def flat(x):  # time-major: a group = adjacent envs at one timestep
+                return x.reshape((n_groups, config.group_size) + tuple(x.shape[2:]))
     else:
 
         def flat(x):  # env-major rows, as the JAX package flattens them
-            return x.transpose(0, 1).reshape((config.total_batch,) + tuple(x.shape[2:]))
+            return x.transpose(0, 1).reshape((t_len * e,) + tuple(x.shape[2:]))
 
-    advantages = (advantages - advantages.mean()) / (advantages.std() + 1e-8)
+    if dp is None:
+        advantages = (advantages - advantages.mean()) / (advantages.std() + 1e-8)
+    else:  # over every rank's buffer, ddof=1
+        mean = dp.mean(advantages.mean())
+        sq = dp.coll.all_reduce(((advantages - mean) ** 2).sum())
+        advantages = (advantages - mean) / (torch.sqrt(sq / (config.total_batch - 1)) + 1e-8)
     return {
         "obs": flat(traj["obs"]),
         "mask": flat(traj["mask"]),
@@ -461,18 +614,31 @@ _METRIC_KEYS = (
 )
 
 
+def gather_minibatch(x: torch.Tensor, rows: torch.Tensor, grouped: bool) -> torch.Tensor:
+    """A minibatch of a flat buffer: ``rows`` are row ids, group ids, or
+    (shards, groups) each shard's own group ids over a shard-major buffer;
+    groups come back as rows."""
+    if rows.dim() == 2:
+        xs = x.reshape((rows.shape[0], -1) + tuple(x.shape[1:]))
+        picked = xs[torch.arange(rows.shape[0], device=rows.device)[:, None], rows]
+    else:
+        picked = x[rows]
+    if grouped:
+        picked = picked.reshape((-1,) + tuple(x.shape[2:]))
+    return picked
+
+
 def minibatch_update(model, config: PPOConfig, optimizer: PPOOptimizer, flats: dict,
-                     rows: torch.Tensor, entropy_coef, watch: Optional[GradWatch] = None
-                     ) -> torch.Tensor:
+                     rows: torch.Tensor, entropy_coef, watch: Optional[GradWatch] = None,
+                     dp=None) -> torch.Tensor:
     """One minibatch update on the ``rows`` (or groups) of ``flats``;
     returns its metrics, a (7,) tensor in ``_METRIC_KEYS`` order.
     ``entropy_coef`` is a float or a 0-d tensor; ``watch`` takes the
-    pre-clip gradients."""
+    pre-clip gradients. With ``dp`` the rows are this rank's part of the
+    minibatch (its shards' (shards, groups) for the sharded "grouped"
+    shuffle) and the metrics are the whole minibatch's."""
     def take(x):
-        picked = x[rows]
-        if config.shuffle == "grouped":
-            picked = picked.reshape((config.batch_size,) + tuple(x.shape[2:]))
-        return picked
+        return gather_minibatch(x, rows, config.shuffle == "grouped")
 
     obs, mask, actions = take(flats["obs"]), take(flats["mask"]), take(flats["actions"])
     old_logp, rets, adv = take(flats["old_logp"]), take(flats["returns"]), take(flats["adv"])
@@ -498,7 +664,14 @@ def minibatch_update(model, config: PPOConfig, optimizer: PPOOptimizer, flats: d
     with torch.no_grad():
         clip_frac = ((ratio - 1.0).abs() > config.clip_range).to(torch.float32).mean()
         approx_kl = ((ratio - 1.0) - log_ratio).mean()
-        rvar = rets.var()
+        if dp is None:
+            rvar = rets.var()
+        else:  # each mean over the whole minibatch: one all-reduce
+            g = dp.mean(torch.stack([actor_loss, critic_loss, entropy_loss, clip_frac,
+                                     approx_kl, rets.mean(), (rets * rets).mean()]))
+            actor_loss, critic_loss, entropy_loss, clip_frac, approx_kl = g[:5]
+            b = config.batch_size
+            rvar = (g[6] - g[5] * g[5]) * (b / (b - 1.0))
         explained_var = torch.where(
             rvar > 1e-8, 1.0 - critic_loss / rvar, torch.zeros_like(rvar)
         )
@@ -516,17 +689,27 @@ def _update_epochs_impl(
     entropy_coef: float,
     epoch_indices: Sequence[torch.Tensor],
     watch: Optional[GradWatch] = None,
+    dp=None,
 ) -> dict:
-    """Minibatch SGD over the given epochs' indices; returns the per-update
-    mean of each metric as a 0-d tensor. ``watch`` takes every update's
-    pre-clip gradients."""
+    """Minibatch SGD over the given epochs' indices (this rank's, with
+    ``dp``); returns the per-update mean of each metric as a 0-d tensor.
+    ``watch`` takes every update's pre-clip gradients."""
     sums = torch.zeros((len(_METRIC_KEYS),), dtype=torch.float32, device=flats["adv"].device)
     n_updates = 0
     for idx in epoch_indices:
         for rows in idx:
-            sums += minibatch_update(model, config, optimizer, flats, rows, entropy_coef, watch)
+            sums += minibatch_update(model, config, optimizer, flats, rows, entropy_coef, watch,
+                                     dp)
             n_updates += 1
     return dict(zip(_METRIC_KEYS, sums / max(n_updates, 1)))
+
+
+def attach_batch_stat_sync(model, dp) -> None:
+    """Every BatchNorm of ``model`` takes its train-mode statistics over
+    ``dp``'s ranks."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.stat_sync = dp.batch_stats
 
 
 # ---------------------------------------------------------------------------
@@ -544,19 +727,44 @@ class PPOLearner:
     one training iteration against a given opponent policy."""
 
     def __init__(self, model, config: PPOConfig, optimizer: PPOOptimizer,
-                 generator: torch.Generator, device):
+                 generator: torch.Generator, device, dp=None):
         self.model = model
         self.config = config
-        self.optimizer = optimizer
         self.generator = generator
         self.device = torch.device(device)
+        self.dp = dp
+        if dp is not None:
+            if config.shuffle == "global" or config.shard_groups % dp.world:
+                raise ValueError(f"{dp.world} ranks need the 'grouped' or 'tiled' shuffle over "
+                                 f"a multiple of {dp.world} shards (shuffle={config.shuffle!r}, "
+                                 f"shard_groups={config.shard_groups})")
+            attach_batch_stat_sync(model, dp)
+        self.optimizer = optimizer
         self._sp_state = None
         self._obs = None
         self._ep_rew = None
         self._ep_len = None
 
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    @optimizer.setter
+    def optimizer(self, optimizer) -> None:
+        self._optimizer = optimizer
+        if self.dp is not None and not self.config.zero_update:
+            optimizer.dp = self.dp
+
+    @property
+    def num_envs(self) -> int:
+        """This rank's envs (all of them on one rank)."""
+        return self.config.num_envs if self.dp is None else self.dp.shard.size
+
     def reset_envs(self, opponent, agent_side: Optional[torch.Tensor] = None) -> None:
-        e = self.config.num_envs
+        """Fresh envs; ``agent_side`` injects the sides (this rank's)."""
+        e = self.num_envs
+        if agent_side is None and self.dp is not None:
+            agent_side = self.dp.shard.sides(self.generator, self.device)
         self._sp_state, self._obs = selfplay_reset(
             self.config.env, opponent, e, self.device, self.generator, agent_side
         )
@@ -568,22 +776,27 @@ class PPOLearner:
             self.reset_envs(opponent)
         (self._sp_state, self._obs, traj, fin, (self._ep_rew, self._ep_len)) = rollout_impl(
             self.model, self.config, opponent, self._sp_state, self._obs,
-            self._ep_rew, self._ep_len, self.generator, draws,
+            self._ep_rew, self._ep_len, self.generator, draws, self.dp,
         )
         return traj, fin
 
     def update(self, traj: dict, entropy_coef: float,
                epoch_indices: Optional[Sequence[torch.Tensor]] = None,
                watch: Optional[GradWatch] = None) -> dict:
-        """Prepare + ``ppo_epochs`` epochs (indices drawn unless injected)."""
-        flats = _update_prepare_impl(self.model, self.config, traj, self._obs)
+        """Prepare + ``ppo_epochs`` epochs (indices drawn unless injected;
+        injected ones are over the whole batch)."""
+        flats = _update_prepare_impl(self.model, self.config, traj, self._obs, self.dp)
+        world, rank = (1, 0) if self.dp is None else (self.dp.world, self.dp.rank)
         if epoch_indices is None:
             epoch_indices = [
-                _minibatch_indices(self.config, self.generator, self.device)
+                _minibatch_indices(self.config, self.generator, self.device, world, rank)
                 for _ in range(self.config.ppo_epochs)
             ]
+        else:
+            epoch_indices = [rank_indices(self.config, idx, world, rank) for idx in epoch_indices]
         return _update_epochs_impl(
-            self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices, watch
+            self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices, watch,
+            self.dp,
         )
 
     def leaf_names(self) -> list:

@@ -1,10 +1,12 @@
-"""Tournament CLI: round-robin + ELO + CSVs (counterpart of the JAX package's
-``compare_models.py``, without the charts).
+"""Tournament CLI: round-robin + ELO + CSVs + charts (counterpart of the JAX
+package's ``compare_models.py``).
 
 Positional model paths (files, directories or globs), ``--games``, ``--board
 M N K``, ``--output``, ``--device {cuda,cpu}`` (default the card; it raises
 without one); writes ``elo_ratings.csv`` and ``match_results.csv`` under a
-timestamped directory, with the JAX package's columns.
+timestamped directory, with the JAX package's columns, and the ELO charts
+(``compare/visualizer.py``: the HTML page, and the PNG where matplotlib
+imports).
 
 Usage:
     python -m rl_selfplay_mnk_tpu_torch.compare_models models/runA models/runB \\
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 from .compare.elo import RATING_COLUMNS, ELOTracker
 from .compare.match_runner import GameConfig, MatchRunner
 from .compare.model_loader import ModelLoader
+from .compare.visualizer import ResultsVisualizer
 from .utils.hardware import resolve_device
 
 MATCH_COLUMNS = (
@@ -77,6 +80,7 @@ def main(argv=None) -> Optional[str]:
     for row in ratings:
         print(f"{row['unique_id']:<{width}} {row['rating']:7.2f} {row['games_played']:6d} "
               f"{row['wins']:5d} {row['draws']:6d} {row['losses']:7d} {row['win_rate']:9.4f}")
+    ResultsVisualizer(out_dir).create_all_visualizations(ratings)
     return out_dir
 
 

@@ -59,12 +59,18 @@ class BatchNorm(nn.Module):
     same biased variance. ``torch.nn.BatchNorm2d`` updates the running
     variance with the unbiased one instead, which drifts from the reference.
     Eval mode normalises with the running statistics.
+
+    ``stat_sync`` (None on one rank) makes the statistics those of every
+    rank's batch, as GSPMD's are over a sharded batch in the JAX package:
+    it maps this rank's (2, C) means of x and x^2 to the means over ranks,
+    differentiably (``parallel.mesh.DataParallel.batch_stats``).
     """
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.stat_sync = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -74,7 +80,10 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if train:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+            if self.stat_sync is not None:
+                mean, sq = self.stat_sync(torch.stack([mean, sq])).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

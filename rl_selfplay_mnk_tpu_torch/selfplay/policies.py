@@ -29,14 +29,28 @@ class Policy:
     apply: Callable[..., torch.Tensor]
     params: Any = None
     generator: Optional[torch.Generator] = None
+    # A data-parallel rank's env rows (``parallel.mesh.EnvShard``): the
+    # policy plays those rows of the global batch, and its sampling noise is
+    # those rows of a draw over the whole batch.
+    shard: Any = None
 
     def act(self, obs: dict, deterministic: bool = False) -> torch.Tensor:
-        return self.apply(self.params, obs, self.generator, deterministic)
+        if self.shard is None:
+            return self.apply(self.params, obs, self.generator, deterministic)
+        return self.apply(self.params, obs, self.generator, deterministic, shard=self.shard)
 
 
-def _random_act(params, obs, generator=None, deterministic=False):
+def _shard_noise(shard, mask: torch.Tensor, generator, deterministic: bool):
+    if shard is None or deterministic:
+        return None
+    return shard.uniform(mask.shape[1:], generator, mask.device)
+
+
+def _random_act(params, obs, generator=None, deterministic=False, shard=None):
     del params
-    return random_masked_actions(obs["action_mask"], generator, deterministic)
+    mask = obs["action_mask"]
+    return random_masked_actions(mask, generator, deterministic,
+                                 _shard_noise(shard, mask, generator, deterministic))
 
 
 def RandomPolicy(generator: Optional[torch.Generator] = None) -> Policy:
@@ -49,12 +63,13 @@ def make_network_policy(network_apply: Callable) -> Callable:
     """Lift ``network_apply(model, observation, mask) -> (logits, value)``
     into a policy act function: mask, then sample or take the argmax."""
 
-    def act(params, obs, generator=None, deterministic=False):
+    def act(params, obs, generator=None, deterministic=False, shard=None):
         logits, _ = network_apply(params, obs["observation"], obs["action_mask"])
         logits = mask_logits(logits, obs["action_mask"])
         if deterministic:
             return masked_argmax(logits)
-        return masked_sample(logits, generator)
+        return masked_sample(logits, generator,
+                             _shard_noise(shard, obs["action_mask"], generator, deterministic))
 
     return act
 
@@ -71,23 +86,29 @@ def make_block_policy(network_apply: Callable, num_blocks: int) -> Callable:
     snapshots: block i of the env batch, envs [i E / K, (i + 1) E / K),
     plays snapshot i in one eval forward of E / K boards; the masked logits
     are put back in env order and one sample (or argmax) is drawn over the
-    whole batch. ``noise`` injects the sample's (E, A) uniforms."""
+    whole batch. ``noise`` injects the sample's (E, A) uniforms. With
+    ``shard`` the rows are a rank's part of the global batch, whose blocks
+    they fall into."""
 
-    def act(params, obs, generator=None, deterministic=False, noise=None):
+    def act(params, obs, generator=None, deterministic=False, noise=None, shard=None):
         observation, mask = obs["observation"], obs["action_mask"]
         e = observation.shape[0]
-        if len(params) != num_blocks or e % num_blocks:
-            raise ValueError(f"{e} envs do not split into {num_blocks} blocks over "
+        start, total = (0, e) if shard is None else (shard.start, shard.total)
+        if len(params) != num_blocks or total % num_blocks:
+            raise ValueError(f"{total} envs do not split into {num_blocks} blocks over "
                              f"{len(params)} opponents")
-        per = e // num_blocks
-        logits = torch.cat([
-            mask_logits(network_apply(model, observation[i * per:(i + 1) * per],
-                                      mask[i * per:(i + 1) * per])[0],
-                        mask[i * per:(i + 1) * per])
-            for i, model in enumerate(params)
-        ])
+        per = total // num_blocks
+        parts = []
+        for i, model in enumerate(params):
+            lo, hi = max(i * per, start) - start, min((i + 1) * per, start + e) - start
+            if lo < hi:
+                parts.append(mask_logits(network_apply(model, observation[lo:hi],
+                                                       mask[lo:hi])[0], mask[lo:hi]))
+        logits = torch.cat(parts)
         if deterministic:
             return masked_argmax(logits)
+        if noise is None:
+            noise = _shard_noise(shard, mask, generator, deterministic)
         return masked_sample(logits, generator, noise)
 
     return act

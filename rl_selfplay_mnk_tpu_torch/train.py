@@ -25,7 +25,16 @@
     was promoted) and once more at the end, under ``<export_dir>/<run>/``;
   * per-iteration fault handling: log the error and continue, except for
     a kernel that fails to build, load or launch (``KernelError``), which
-    ends the run.
+    ends the run;
+  * data parallel (``multihost``, ``parallel/mesh.py``): every rank drives
+    this same loop on its envs, with the same seeds, so the pool, the
+    validation and the promotion decide alike on every rank; the update's
+    reductions are the ranks' (``alg/ppo.py``), or with
+    ``zero_sharded_optimizer`` the ZeRO-1 learner (``alg/zero_epochs.py``)
+    where the JAX package's rule engages it; exports, metric streams,
+    stdout and checkpoints belong to rank 0, and a checkpoint holds the
+    whole env batch, so a run saved under one world size resumes under
+    another.
 
 Runs on the card unless ``device="cpu"`` (``--device cpu``) is asked for.
 Usage::
@@ -35,6 +44,9 @@ Usage::
     python -m rl_selfplay_mnk_tpu_torch.train --run-name r1 --checkpoint-interval 10 [--resume]
     python -m rl_selfplay_mnk_tpu_torch.train --matchmaking pfsp_even --watch-interval 5
     python -m rl_selfplay_mnk_tpu_torch.train --fused  # train_fused.train_mnk_fused
+    # one command a rank (N ranks; gloo on the CPU, nccl with a card a rank):
+    python -m rl_selfplay_mnk_tpu_torch.train --multihost --run-name r2 \
+        --coordinator-address localhost:29500 --num-processes N --process-id i [--zero-opt]
 
 ``--arch`` also sets the family's learning rate and entropy schedule
 (``apply_family_hparams``). On the command line, and only there, ``--mnk 13
@@ -55,10 +67,22 @@ import torch
 
 from .alg.ppo import PPOConfig, PPOLearner, PPOOptimizer, TrainingMetrics, pick_group_size
 from .alg.schedules import entropy_coef_at, make_lr_schedule
+from .alg.zero_epochs import ZeroOptimizer, zero_eligible
 from .env.mnk_env import EnvConfig, EnvState
+from .models.common import BatchNorm
 from .models.fold_bn import snapshot, snapshot_from_state_dict
 from .ops.cuda_build import KernelError
 from .models.registry import create_model_from_architecture, eval_apply, init_network
+from .parallel.mesh import (
+    data_parallel,
+    init_distributed,
+    is_coordinator,
+    process_index,
+    rank_device,
+    replicate,
+    shard_batched,
+    world_size,
+)
 from .selfplay.league import MATCHMAKING_MODES, League
 from .selfplay.opponent_pool import OpponentPool
 from .selfplay.policies import BlockPolicy, NNPolicy
@@ -66,8 +90,8 @@ from .selfplay.validation import validate
 from .selfplay.wrapper import SelfPlayState
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.hardware import HardwareConfig, detect_hardware_config
-from .utils.metrics import MetricsLogger
-from .utils.model_export import ModelExporter
+from .utils.metrics import MetricsLogger, NullMetricsLogger
+from .utils.model_export import ModelExporter, NullModelExporter
 
 
 def get_default_config() -> Dict[str, Any]:
@@ -110,7 +134,8 @@ def get_default_config() -> Dict[str, Any]:
         "watch_interval": 20,  # iterations; 0 = no watch record
         "watch_histograms": False,  # 16-bin parameter histograms in it
         "watch_grad_hist_bins": 6,  # signed-log gradient bins a sign; 0 = none
-        "device": None,  # None = cuda
+        "zero_sharded_optimizer": False,  # the ZeRO-1 learner, where eligible
+        "device": None,  # None = cuda (a rank's own card)
     }
 
 
@@ -158,9 +183,17 @@ def build_config(arch: Optional[str] = None, mnk=None, batch_size: Optional[int]
     return config
 
 
-def create_learner(config: Dict[str, Any], hw: HardwareConfig):
-    """Network + optimizer + PPO learner on ``hw.device``. Returns
-    ``(learner, env_cfg, lr_schedule, arch_params)``."""
+def create_learner(config: Dict[str, Any], hw: HardwareConfig, dp=None):
+    """Network + optimizer + PPO learner on ``hw.device``, data-parallel
+    over ``dp``'s ranks when given. Returns ``(learner, env_cfg,
+    lr_schedule, arch_params)``.
+
+    As in the JAX package: ``shuffle`` "auto" is "grouped" on the card,
+    "tiled" over several CPU ranks and "global" on one; the layout's
+    ``shard_groups`` is the world size (``config["shard_groups"]`` may set
+    a multiple of it: one rank given the layout of d trains as d ranks do);
+    ``group_size = pick_group_size(batch_size // shard_groups)``; the ZeRO-1
+    learner engages where ``zero_eligible`` says."""
     m, n, k = config["mnk"]
     env_cfg = EnvConfig(m, n, k).validate()
     obs_shape = (2, m, n)
@@ -171,10 +204,27 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
     init_network(module, torch.Generator().manual_seed(config["seed"]))
     module.to(hw.device)
     blocks = int(config.get("opponents_per_iteration", 1))
+    world = 1 if dp is None else dp.world
+    shard_groups = int(config.get("shard_groups") or world)
 
     shuffle = config.get("shuffle", "auto")
     if shuffle == "auto":
-        shuffle = "grouped" if hw.is_accelerator else "global"
+        if hw.is_accelerator:
+            shuffle = "grouped"
+        else:
+            shuffle = "tiled" if shard_groups > 1 else "global"
+    has_batch_stats = any(isinstance(m, BatchNorm) for m in module.modules())
+    requested = bool(config.get("zero_sharded_optimizer"))
+    zero = zero_eligible(requested, world, shuffle, has_batch_stats)
+    say = print if is_coordinator() else (lambda *a, **k: None)
+    if zero:
+        say(f"ZeRO sharded learner engaged: moments sharded over {world} ranks "
+            "(reduce-scatter/all-gather epoch path)")
+    elif requested:
+        say("zero_sharded_optimizer requested but ineligible "
+            f"(devices={world}, shuffle={shuffle!r}, batch_stats={has_batch_stats}): "
+            "the ZeRO epoch path needs a >1-device mesh, the grouped shuffle, and a "
+            "batch-stat-free architecture — using the replicated data-parallel learner instead")
     ppo_cfg = PPOConfig(
         env=env_cfg,
         num_envs=config["num_envs"],
@@ -185,7 +235,9 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
         ppo_epochs=config["ppo_epochs"],
         batch_size=config["batch_size"],
         shuffle=shuffle,
-        group_size=pick_group_size(config["batch_size"]),
+        shard_groups=shard_groups,
+        group_size=pick_group_size(config["batch_size"] // shard_groups),
+        zero_update=zero,
         watch_hist_bins=config.get("watch_grad_hist_bins", 0),
         fin_blocks=blocks if blocks > 1 else 0,
     )
@@ -198,10 +250,54 @@ def create_learner(config: Dict[str, Any], hw: HardwareConfig):
         updates_per_iteration=ppo_cfg.updates_per_iteration,
         decay=config["lr_decay"],
     )
-    optimizer = PPOOptimizer(module.parameters(), lr_schedule)
+    if dp is not None:  # every rank starts from rank 0's weights
+        replicate(list(module.parameters()) + list(module.buffers()), dp.coll)
+    if zero:
+        optimizer = ZeroOptimizer(module.parameters(), dp, lr_schedule,
+                                  clip_norm=ppo_cfg.zero_clip_norm)
+    else:
+        optimizer = PPOOptimizer(module.parameters(), lr_schedule)
     generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 1)
-    learner = PPOLearner(module, ppo_cfg, optimizer, generator, hw.device)
+    learner = PPOLearner(module, ppo_cfg, optimizer, generator, hw.device, dp)
     return learner, env_cfg, lr_schedule, arch_params
+
+
+def join_process_group(config: Dict[str, Any], device: Optional[str] = None):
+    """The multi-process start, before any logger or exporter: join the
+    process group when ``config["multihost"]``, and check that the ranks
+    share a run name. Returns the rank's device name."""
+    if config.get("multihost"):
+        if not config.get("run_name"):
+            # A timestamp default could differ between ranks, which would
+            # split the checkpoint and export paths.
+            raise ValueError("multihost training needs config['run_name'] (all processes "
+                             "must agree on checkpoint/export paths)")
+        init_distributed(config.get("coordinator_address"), config.get("num_processes"),
+                         config.get("process_id"), device or config.get("device"))
+    name = device or config.get("device")
+    if world_size() > 1:
+        name = str(rank_device(name))
+    return name
+
+
+def rank_io(logger, config: Dict[str, Any]):
+    """Rank 0's logger, or a ``NullMetricsLogger`` of the same run on the
+    other ranks. Returns (logger, owns_logger, say): ``say`` prints on rank
+    0 only."""
+    coordinator = is_coordinator()
+    own = logger is None
+    if own:
+        logger = (MetricsLogger(run_name=config.get("run_name"), config=config) if coordinator
+                  else NullMetricsLogger(run_name=config.get("run_name"), config=config))
+    elif not coordinator:
+        logger = NullMetricsLogger(run_name=logger.run_name, config=config)
+    say = print if coordinator else (lambda *a, **k: None)
+    return logger, own, say
+
+
+def make_exporter(logger, config: Dict[str, Any]):
+    cls = ModelExporter if is_coordinator() else NullModelExporter
+    return cls(logger.run_name, base_dir=config.get("export_dir", "models"))
 
 
 def train_mnk(
@@ -217,16 +313,20 @@ def train_mnk(
     k_opponents = int(config.get("opponents_per_iteration", 1))
     if config["num_envs"] % k_opponents:
         raise ValueError(f"{config['num_envs']} envs do not split into {k_opponents} opponent blocks")
-    hw = detect_hardware_config(device or config.get("device"))
-    own_logger = logger is None
-    if own_logger:
-        logger = MetricsLogger(run_name=config.get("run_name"), config=config)
-    learner, env_cfg, lr_schedule, arch_params = create_learner(config, hw)
-    exporter = ModelExporter(logger.run_name, base_dir=config.get("export_dir", "models"))
+    device = join_process_group(config, device)
+    logger, own_logger, say = rank_io(logger, config)
+    hw = detect_hardware_config(device)
+    dp = data_parallel(config["num_envs"], hw.device)
+    learner, env_cfg, lr_schedule, arch_params = create_learner(config, hw, dp)
+    logger.log({"learner/zero_sharded": int(learner.config.zero_update)}, step=0)
+    exporter = make_exporter(logger, config)
     policy_generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 2)
+    shard = None if dp is None else dp.shard
 
-    def network_policy(frozen, generator=policy_generator):
-        return NNPolicy(eval_apply, frozen, generator)
+    def network_policy(frozen, generator=policy_generator, rows=shard):
+        policy = NNPolicy(eval_apply, frozen, generator)
+        policy.shard = rows
+        return policy
 
     # The benchmark starts as the untrained network; the pool is seeded with
     # the same snapshot. Opponents only run eval forwards, so all are frozen
@@ -258,7 +358,7 @@ def train_mnk(
     if config.get("resume"):
         state, _ = restore_checkpoint(ckpt_dir)
         if state is None:
-            print(f"No checkpoint under {ckpt_dir}: starting at iteration 0")
+            say(f"No checkpoint under {ckpt_dir}: starting at iteration 0")
         else:
             m, n, _ = config["mnk"]
 
@@ -273,15 +373,15 @@ def train_mnk(
                 state, learner, pool, host_rng, policy_generator, rebuild)
             start_iteration = state["iteration"] + 1
             dropped = logger.drop_after(state["env_steps"])
-            print(f"Resumed from checkpoint at iteration {start_iteration} "
-                  f"({dropped} records past it dropped from {logger.jsonl_path})")
+            say(f"Resumed from checkpoint at iteration {start_iteration} "
+                f"({dropped} records past it dropped from {logger.jsonl_path})")
 
     summary: Dict[str, Any] = {"iterations": [], "opponent_sources": [], "validations": [],
                                "errors": [], "start_iteration": start_iteration,
                                "jsonl_path": logger.jsonl_path,
                                "export_dir": exporter.export_dir}
 
-    print(f"Starting training for {total_iterations} iterations")
+    say(f"Starting training for {total_iterations} iterations")
     current_env_steps = start_iteration * steps_per_iteration
     for i in range(start_iteration, total_iterations):
         try:
@@ -301,8 +401,11 @@ def train_mnk(
             drawn_ids = [x for x in block_ids if x is not None]
             source = ",".join(d[1] for d in draws)
             logger.log({"training/opponent_source": source}, step=(i + 1) * steps_per_iteration)
-            opponent = (BlockPolicy(eval_apply, opponents, policy_generator) if k_opponents > 1
-                        else network_policy(opponents[0]))
+            if k_opponents > 1:
+                opponent = BlockPolicy(eval_apply, opponents, policy_generator)
+                opponent.shard = shard
+            else:
+                opponent = network_policy(opponents[0])
 
             ent_coef = entropy_coef_at(
                 config["entropy_coef"], config["entropy_coef_schedule"], i,
@@ -325,7 +428,8 @@ def train_mnk(
                         pool.record_result(entry_id, (metrics.mean_reward + 1.0) / 2.0)
 
             current_lr = lr_schedule((i + 1) * learner.config.updates_per_iteration - 1)
-            log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr)
+            log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr,
+                                 echo=is_coordinator())
             summary["iterations"].append(metrics.scalars())
             summary["opponent_sources"].append(source)
 
@@ -338,14 +442,14 @@ def train_mnk(
                 pool.add_opponent(snapshot(learner.model), weight=last_score_rate)
 
             if i > 0 and i % config["validation_interval"] == 0:
-                print(f"--- Running validation at step {i} ({current_env_steps:,} env steps) ---")
+                say(f"--- Running validation at step {i} ({current_env_steps:,} env steps) ---")
                 generator = torch.Generator(device=hw.device).manual_seed(
                     config["seed"] * 1_000_003 + i
                 )
-                validation_res = validate(
+                validation_res = validate(  # the same episodes on every rank
                     env_cfg,
-                    network_policy(snapshot(learner.model), generator),
-                    network_policy(benchmark, generator),
+                    network_policy(snapshot(learner.model), generator, None),
+                    network_policy(benchmark, generator, None),
                     config["validation_episodes"],
                     hw.device,
                     generator,
@@ -355,7 +459,7 @@ def train_mnk(
 
                 score_rate = validation_res["validation/vs_benchmark/score_rate"]
                 last_score_rate = max(score_rate, 1e-3)
-                print(
+                say(
                     f"Score: {score_rate:.2f} | "
                     f"W: {validation_res['validation/vs_benchmark/win_rate']:.2f} | "
                     f"D: {validation_res['validation/vs_benchmark/draw_rate']:.2f} | "
@@ -363,7 +467,7 @@ def train_mnk(
                 )
                 promoted = score_rate > config["benchmark_update_threshold_score"]
                 if promoted:
-                    print(f"--- New benchmark agent at step {i}! ---")
+                    say(f"--- New benchmark agent at step {i}! ---")
                     benchmark = snapshot(learner.model)
                 exporter.export_model(learner.model, config["architecture_name"], arch_params, i,
                                       is_benchmark_breaker=promoted)
@@ -371,9 +475,10 @@ def train_mnk(
                     logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
 
             if ckpt_interval and i > 0 and i % ckpt_interval == 0:
-                save_checkpoint(ckpt_dir, i, checkpoint_state(
-                    learner, benchmark, pool, host_rng, policy_generator, last_score_rate, i,
-                    current_env_steps))
+                state = checkpoint_state(learner, benchmark, pool, host_rng, policy_generator,
+                                         last_score_rate, i, current_env_steps)
+                if is_coordinator():
+                    save_checkpoint(ckpt_dir, i, state)
         except KernelError:
             raise
         except Exception as e:  # log and continue, as the JAX trainer does
@@ -388,12 +493,23 @@ def train_mnk(
     return summary
 
 
+def gather_envs(tree, dp):
+    """The whole env batch of a nest of per-rank (E / d, ...) tensors,
+    gathered from every rank in rank order (every rank calls it)."""
+    if dp is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_envs(v, dp) for k, v in tree.items()}
+    return None if tree is None else dp.gather_rows(tree)
+
+
 def checkpoint_state(learner: PPOLearner, benchmark, pool, host_rng: _random.Random,
                      policy_generator: torch.Generator, last_score_rate: float,
                      iteration: int, env_steps: int) -> Dict[str, Any]:
     """The whole train state after ``iteration`` (the JAX checkpoint's keys
     and the port's generators): snapshots as state_dicts, the self-play
-    state as tensors, random states as plain values."""
+    state as tensors of the whole env batch, random states as plain values.
+    Every rank calls it (the env rows and a ZeRO state are gathered)."""
     if isinstance(pool, League):
         members = [{"model": e.params.state_dict(), "weight": e.score_ema, "id": e.entry_id,
                     "games": e.games} for e in pool.entries]
@@ -402,10 +518,12 @@ def checkpoint_state(learner: PPOLearner, benchmark, pool, host_rng: _random.Ran
         members = [{"model": model.state_dict(), "weight": w}
                    for model, w in zip(pool.pool, pool.weights)]
         next_id = 0
-    sp = learner._sp_state
+    sp, dp = learner._sp_state, learner.dp
+    optimizer = (learner.optimizer.state_dict() if learner.config.zero_update
+                 else learner.optimizer.adamw.state_dict())
     return {
         "model": learner.model.state_dict(),
-        "optimizer": learner.optimizer.adamw.state_dict(),
+        "optimizer": optimizer,
         "optimizer_count": learner.optimizer.count,
         "benchmark": benchmark.state_dict(),
         "pool": members,
@@ -413,11 +531,11 @@ def checkpoint_state(learner: PPOLearner, benchmark, pool, host_rng: _random.Ran
         "host_rng_state": host_rng.getstate(),
         "pool_rng_state": pool._rng.getstate(),
         "last_score_rate": float(last_score_rate),
-        "sp_state": {"env": sp.env._asdict(), "agent_side": sp.agent_side,
-                     "pending_resets": sp.pending_resets},
-        "obs": learner._obs,
-        "ep_rew": learner._ep_rew,
-        "ep_len": learner._ep_len,
+        "sp_state": gather_envs({"env": sp.env._asdict(), "agent_side": sp.agent_side,
+                                 "pending_resets": sp.pending_resets}, dp),
+        "obs": gather_envs(learner._obs, dp),
+        "ep_rew": gather_envs(learner._ep_rew, dp),
+        "ep_len": gather_envs(learner._ep_len, dp),
         "generator": learner.generator.get_state(),
         "policy_generator": policy_generator.get_state(),
         "iteration": iteration,
@@ -428,14 +546,25 @@ def checkpoint_state(learner: PPOLearner, benchmark, pool, host_rng: _random.Ran
 def restore_train_state(state: Dict[str, Any], learner: PPOLearner, pool, host_rng: _random.Random,
                         policy_generator: torch.Generator, rebuild):
     """Put ``checkpoint_state``'s ``state`` back; ``rebuild(state_dict)``
-    makes a snapshot. Returns (benchmark, last_score_rate)."""
+    makes a snapshot. Returns (benchmark, last_score_rate). A rank takes
+    its rows of the saved env batch, whatever world saved it."""
     dev = learner.device
+    dp = learner.dp
+    e = learner.config.num_envs
+
+    def rows(x):
+        if x is None or dp is None:
+            return x
+        return shard_batched(x, dp.world, dp.rank, batch_size=e)
 
     def on_device(tree):
-        return {k: None if v is None else v.to(dev) for k, v in tree.items()}
+        return {k: None if v is None else rows(v).to(dev) for k, v in tree.items()}
 
     learner.model.load_state_dict(state["model"])
-    learner.optimizer.adamw.load_state_dict(state["optimizer"])
+    if learner.config.zero_update:
+        learner.optimizer.load_state_dict(state["optimizer"])
+    else:
+        learner.optimizer.adamw.load_state_dict(state["optimizer"])
     learner.optimizer.count = state["optimizer_count"]
     if isinstance(pool, League):
         pool.entries.clear()
@@ -453,11 +582,11 @@ def restore_train_state(state: Dict[str, Any], learner: PPOLearner, pool, host_r
     pool._rng.setstate(state["pool_rng_state"])
     sp = state["sp_state"]
     learner._sp_state = SelfPlayState(env=EnvState(**on_device(sp["env"])),
-                                      agent_side=sp["agent_side"].to(dev),
-                                      pending_resets=sp["pending_resets"].to(dev))
+                                      agent_side=rows(sp["agent_side"]).to(dev),
+                                      pending_resets=rows(sp["pending_resets"]).to(dev))
     learner._obs = on_device(state["obs"])
-    learner._ep_rew = state["ep_rew"].to(dev)
-    learner._ep_len = state["ep_len"].to(dev)
+    learner._ep_rew = rows(state["ep_rew"]).to(dev)
+    learner._ep_len = rows(state["ep_len"]).to(dev)
     learner.generator.set_state(state["generator"])
     policy_generator.set_state(state["policy_generator"])
     return rebuild(state["benchmark"]), state["last_score_rate"]
@@ -470,23 +599,26 @@ def log_training_metrics(
     env_steps: int,
     entropy_coef: float,
     current_lr: float,
+    echo: bool = True,
 ) -> None:
-    """Stdout line + logger record, with the JAX package's keys."""
-    print(
-        f"Iter {iteration} | {env_steps:,} steps | "
-        f"reward: {metrics.mean_reward:.3f} | "
-        f"length: {metrics.mean_length:.1f} | "
-        f"entropy: {metrics.entropy_loss:.4f} | "
-        f"entropy_coef: {entropy_coef:.4f} | "
-        f"lr: {current_lr:.6f} | "
-        f"grad_norm: {metrics.grad_norm:.3f} | "
-        f"clip: {metrics.clip_fraction:.3f} | "
-        f"explained_var: {metrics.explained_variance:.3f} | "
-        f"approx_kl: {metrics.approx_kl:.4f} | "
-        f"fps: {metrics.fps:.1f} | "
-        f"rollout_time: {metrics.rollout_time:.3f}s | "
-        f"learn_time: {metrics.learn_time:.3f}s"
-    )
+    """Stdout line (with ``echo``) + logger record, with the JAX package's
+    keys."""
+    if echo:
+        print(
+            f"Iter {iteration} | {env_steps:,} steps | "
+            f"reward: {metrics.mean_reward:.3f} | "
+            f"length: {metrics.mean_length:.1f} | "
+            f"entropy: {metrics.entropy_loss:.4f} | "
+            f"entropy_coef: {entropy_coef:.4f} | "
+            f"lr: {current_lr:.6f} | "
+            f"grad_norm: {metrics.grad_norm:.3f} | "
+            f"clip: {metrics.clip_fraction:.3f} | "
+            f"explained_var: {metrics.explained_variance:.3f} | "
+            f"approx_kl: {metrics.approx_kl:.4f} | "
+            f"fps: {metrics.fps:.1f} | "
+            f"rollout_time: {metrics.rollout_time:.3f}s | "
+            f"learn_time: {metrics.learn_time:.3f}s"
+        )
     logger.log(
         {
             "training/mean_reward": metrics.mean_reward,
@@ -508,7 +640,7 @@ def log_training_metrics(
 
 def handle_training_error(logger: MetricsLogger, error: Exception, iteration: int,
                           env_steps: int) -> None:
-    print(f"Error in iteration {iteration}: {error}")
+    print(f"Error in iteration {iteration} (rank {process_index()}): {error}")
     traceback.print_exc()
     logger.log(
         {
@@ -533,7 +665,8 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     parser.add_argument("--run-name", default=None)
     parser.add_argument("--export-dir", default=None,
                         help="exports go to <dir>/<run>/ (default: models)")
-    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--device", default="cuda", type=device_name,
+                        help="cuda (a rank's own card), cuda:N or cpu")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest checkpoint of the run")
     parser.add_argument("--checkpoint-interval", type=int, default=None,
@@ -552,7 +685,19 @@ def config_from_args(argv=None) -> Dict[str, Any]:
     parser.add_argument("--fused", action="store_true",
                         help="device-resident iteration loop (train_fused): opponent pool, "
                         "draws and schedules on the card, CUDA graphs a validation block")
+    parser.add_argument("--zero-opt", action="store_true",
+                        help="ZeRO-1 sharded learner: AdamW's moments and step sharded over "
+                        "the ranks (reduce-scatter gradients, all-gather updates); needs "
+                        "more than one rank")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group of ranks (the three flags below)")
+    parser.add_argument("--coordinator-address", default=None, help="host:port of rank 0")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
+    if args.multihost and not args.run_name:
+        parser.error("--multihost needs --run-name (all processes must agree on "
+                     "export/checkpoint paths; a timestamp default could differ between ranks)")
 
     config = build_config(args.arch, args.mnk, args.batch_size)
     if config["mnk"] == (13, 13, 5):
@@ -583,14 +728,28 @@ def config_from_args(argv=None) -> Dict[str, Any]:
         config["watch_histograms"] = True
     if args.fused:
         config["fused"] = True
+    if args.zero_opt:
+        config["zero_sharded_optimizer"] = True
+    if args.multihost:
+        config.update(multihost=True, coordinator_address=args.coordinator_address,
+                      num_processes=args.num_processes, process_id=args.process_id)
     return config
+
+
+def device_name(name: str) -> str:
+    """``cuda``, ``cuda:N`` or ``cpu``."""
+    if name in ("cuda", "cpu") or (name.startswith("cuda:") and name[5:].isdigit()):
+        return name
+    raise argparse.ArgumentTypeError(f"unknown device {name!r}: cuda, cuda:N or cpu")
 
 
 def main(argv=None) -> None:
     config = config_from_args(argv)
     fused = config.pop("fused", False)
-    with MetricsLogger(run_name=config["run_name"], config=config, group="main_run_small_board",
-                       tags=["main_experiment"]) as logger:
+    join_process_group(config)  # before any logger: only rank 0 opens the stream
+    logger_cls = MetricsLogger if is_coordinator() else NullMetricsLogger
+    with logger_cls(run_name=config["run_name"], config=config, group="main_run_small_board",
+                    tags=["main_experiment"]) as logger:
         if fused:
             from .train_fused import train_mnk_fused
 

@@ -38,8 +38,17 @@ Deviations from the host loop, as in the JAX driver:
     accumulators and the generators, so a resume continues bit-exactly;
   * the watch record is off (``watch_interval`` forced to 0), and mixed
     opponent batches (``opponents_per_iteration`` > 1) are refused;
-  * ``update_chunks`` and the ZeRO sharded optimizer belong to the JAX
-    package's distribution features, which are not ported: refused.
+  * ``update_chunks`` splits an update under a TPU RPC deadline and is not
+    applicable here: refused.
+
+Over the ranks of a data-parallel world (``multihost``, as in
+``train.train_mnk``) each rank runs the blocks on its envs with the
+replicated learner or, with ``zero_sharded_optimizer`` where the JAX
+package's rule engages it, the ZeRO-1 learner; rank 0 alone writes.
+Only the step dispatch runs there: ``"auto"`` resolves to ``"step"``
+(and says so) and ``"scan"`` is refused, since a gloo collective cannot be
+captured in a CUDA graph and one card cannot show NCCL's capture across
+ranks. Checkpoints hold the whole env batch (``FusedTrainer.global_state``).
 
 Runs on the card unless ``device="cpu"`` is asked for. Usage::
 
@@ -57,6 +66,7 @@ import torch
 from .alg.fused import METRIC_KEYS, FusedTrainer, train_block
 from .alg.ppo import DeviceOptimizer, TrainingMetrics
 from .alg.schedules import make_entropy_coef_fn, make_lr_fn
+from .alg.zero_epochs import ZeroOptimizer
 from .models.fold_bn import snapshot, snapshot_from_state_dict
 from .models.registry import create_model_from_architecture, eval_apply
 from .ops.cuda_build import KernelError
@@ -64,11 +74,18 @@ from .selfplay.league import MATCHMAKING_MODES
 from .selfplay.opponent_pool import EVICTION_POLICIES, pool_add, pool_init
 from .selfplay.policies import NNPolicy
 from .selfplay.validation import validate
-from .train import create_learner, handle_training_error, log_training_metrics
+from .parallel.mesh import data_parallel, is_coordinator, world_size
+from .train import (
+    create_learner,
+    handle_training_error,
+    join_process_group,
+    log_training_metrics,
+    make_exporter,
+    rank_io,
+)
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.hardware import detect_hardware_config
 from .utils.metrics import MetricsLogger
-from .utils.model_export import ModelExporter
 
 POOL_PROB = 0.15  # the share of iterations that play a pool member
 POOL_INSERT_INTERVAL = 20  # iterations between pool inserts
@@ -83,11 +100,20 @@ def _block_end(start: int, validation_interval: int, total: int) -> int:
     return min(next_boundary, total - 1)
 
 
-def resolve_dispatch(dispatch: str, device: torch.device) -> str:
-    """``"auto"`` -> ``"scan"`` on the card, else ``"step"``; ``"scan"`` off
-    the card raises."""
+def resolve_dispatch(dispatch: str, device: torch.device, world: int = 1) -> str:
+    """``"auto"`` -> ``"scan"`` on the card with one rank, else ``"step"``;
+    ``"scan"`` off the card or over several ranks raises."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown fused_dispatch {dispatch!r}; choose from {DISPATCHES}")
+    if world > 1:
+        if dispatch == "scan":
+            raise ValueError(f"fused_dispatch='scan' is not run over {world} ranks: a gloo "
+                             "collective cannot be captured in a CUDA graph, and NCCL's capture "
+                             "across ranks is not verified; use 'step' or 'auto'")
+        if dispatch == "auto" and is_coordinator():
+            print(f"fused_dispatch 'auto' over {world} ranks: 'step' (the scan dispatch is not "
+                  "run over ranks)")
+        return "step"
     if dispatch == "auto":
         dispatch = "scan" if device.type == "cuda" else "step"
     if dispatch == "scan" and device.type != "cuda":
@@ -108,21 +134,26 @@ def check_fused_config(config: Dict[str, Any]) -> None:
     eviction = config.get("pool_eviction", "fifo")
     if eviction not in EVICTION_POLICIES:
         raise ValueError(f"unknown pool_eviction {eviction!r}; choose from {EVICTION_POLICIES}")
-    if config.get("update_chunks", 1) > 1 or config.get("zero_sharded_optimizer"):
-        raise ValueError("update_chunks and zero_sharded_optimizer split the update across "
-                         "TPU programs and devices, which the port does not implement")
+    if config.get("update_chunks", 1) > 1:
+        raise ValueError("update_chunks splits the update into programs under a TPU RPC "
+                         "deadline, which does not apply to the port: drop the option")
 
 
-def create_fused_trainer(config: Dict[str, Any], hw, max_block: int = 1):
-    """The learner of ``create_learner`` with a ``DeviceOptimizer``, its
-    envs reset against the untrained network, a ``DevicePool`` seeded with
-    that network, and the ``FusedTrainer`` over them. Returns (trainer,
-    env_cfg, lr_schedule, arch_params, benchmark): ``lr_schedule`` is the
-    host schedule that the metrics log, ``benchmark`` the untrained
-    snapshot."""
-    learner, env_cfg, lr_schedule, arch_params = create_learner(config, hw)
+def create_fused_trainer(config: Dict[str, Any], hw, max_block: int = 1, dp=None):
+    """The learner of ``create_learner`` (over ``dp``'s ranks when given)
+    with its lr on the device (a ``DeviceOptimizer``, or the
+    ``ZeroOptimizer`` where ZeRO engages), its envs reset against the
+    untrained network, a ``DevicePool`` seeded with that network, and the
+    ``FusedTrainer`` over them. Returns (trainer, env_cfg, lr_schedule,
+    arch_params, benchmark): ``lr_schedule`` is the host schedule that the
+    metrics log, ``benchmark`` the untrained snapshot."""
+    learner, env_cfg, lr_schedule, arch_params = create_learner(config, hw, dp)
     cfg = learner.config
-    learner.optimizer = DeviceOptimizer(learner.model.parameters(), lr_schedule(0))
+    if cfg.zero_update:
+        learner.optimizer = ZeroOptimizer(learner.model.parameters(), dp, lr=lr_schedule(0),
+                                          clip_norm=cfg.zero_clip_norm)
+    else:
+        learner.optimizer = DeviceOptimizer(learner.model.parameters(), lr_schedule(0))
     lr_fn = make_lr_fn(config["learning_rate"], config["lr_warmup_steps"],
                        config["total_environment_steps"], cfg.num_envs, cfg.n_steps,
                        cfg.updates_per_iteration, config["lr_decay"])
@@ -130,7 +161,9 @@ def create_fused_trainer(config: Dict[str, Any], hw, max_block: int = 1):
                                       cfg.num_envs, cfg.n_steps)
     policy_generator = torch.Generator(device=hw.device).manual_seed(config["seed"] + 2)
     benchmark = snapshot(learner.model)
-    learner.reset_envs(NNPolicy(eval_apply, benchmark, policy_generator))
+    first = NNPolicy(eval_apply, benchmark, policy_generator)
+    first.shard = None if dp is None else dp.shard
+    learner.reset_envs(first)
     state = learner.model.state_dict()
     pool = pool_add(pool_init(state, config["opponent_pool"]), state, 1.0)
     trainer = FusedTrainer(
@@ -165,16 +198,17 @@ def train_mnk_fused(
     check_fused_config(config)
     if config.get("watch_interval"):
         config = {**config, "watch_interval": 0}
-    hw = detect_hardware_config(device or config.get("device"))
-    dispatch = resolve_dispatch(config.get("fused_dispatch", "auto"), hw.device)
-    own_logger = logger is None
-    if own_logger:
-        logger = MetricsLogger(run_name=config.get("run_name"), config=config)
+    device = join_process_group(config, device)
+    logger, own_logger, say = rank_io(logger, config)
+    hw = detect_hardware_config(device)
+    dispatch = resolve_dispatch(config.get("fused_dispatch", "auto"), hw.device, world_size())
+    dp = data_parallel(config["num_envs"], hw.device)
     vint = config["validation_interval"]
     trainer, env_cfg, lr_schedule, arch_params, benchmark = create_fused_trainer(
-        config, hw, max_block=vint + 1)
+        config, hw, max_block=vint + 1, dp=dp)
+    logger.log({"learner/zero_sharded": int(trainer.config.zero_update)}, step=0)
     model = trainer.model
-    exporter = ModelExporter(logger.run_name, base_dir=config.get("export_dir", "models"))
+    exporter = make_exporter(logger, config)
     last_score_rate = 1.0
 
     steps_per_iteration = config["num_envs"] * config["n_steps"]
@@ -187,9 +221,9 @@ def train_mnk_fused(
     if config.get("resume"):
         state, _ = restore_checkpoint(ckpt_dir)
         if state is None:
-            print(f"No checkpoint under {ckpt_dir}: starting at iteration 0")
+            say(f"No checkpoint under {ckpt_dir}: starting at iteration 0")
         else:
-            trainer.load_state(state["trainer"])
+            trainer.load_global_state(state["trainer"])
             m, n, _ = config["mnk"]
             fresh, _ = create_model_from_architecture(
                 config["architecture_name"], (2, m, n), m * n, dtype=hw.compute_dtype)
@@ -197,8 +231,8 @@ def train_mnk_fused(
             last_score_rate = state["last_score_rate"]
             start_iteration = state["iteration"] + 1
             dropped = logger.drop_after(state["env_steps"])
-            print(f"Resumed from checkpoint at iteration {start_iteration} "
-                  f"({dropped} records past it dropped from {logger.jsonl_path})")
+            say(f"Resumed from checkpoint at iteration {start_iteration} "
+                f"({dropped} records past it dropped from {logger.jsonl_path})")
 
     summary: Dict[str, Any] = {"iterations": [], "opponent_sources": [], "validations": [],
                                "errors": [], "start_iteration": start_iteration,
@@ -209,8 +243,8 @@ def train_mnk_fused(
         t0 = time.perf_counter()
         trainer.capture()  # outside any handler: a capture that fails ends the run
         summary["capture_s"] = time.perf_counter() - t0
-    print(f"Starting fused training for {total_iterations} iterations "
-          f"(validation every {vint}, dispatch={dispatch})")
+    say(f"Starting fused training for {total_iterations} iterations "
+        f"(validation every {vint}, dispatch={dispatch})")
 
     i = start_iteration
     last_ckpt = start_iteration - 1
@@ -260,12 +294,12 @@ def train_mnk_fused(
                 logger.log({"training/opponent_source": source}, step=env_steps)
                 current_lr = lr_schedule((it + 1) * trainer.config.updates_per_iteration - 1)
                 log_training_metrics(logger, metrics, it, env_steps, row["entropy_coef"],
-                                     current_lr)
+                                     current_lr, echo=is_coordinator())
                 summary["iterations"].append(metrics.scalars())
                 summary["opponent_sources"].append(source)
 
             if end > 0 and end % vint == 0:
-                print(f"--- Running validation at step {end} ({current_env_steps:,} env steps) ---")
+                say(f"--- Running validation at step {end} ({current_env_steps:,} env steps) ---")
                 generator = torch.Generator(device=hw.device).manual_seed(
                     config["seed"] * 1_000_003 + end)
                 validation_res = validate(
@@ -280,7 +314,7 @@ def train_mnk_fused(
                 summary["validations"].append(validation_res)
                 score_rate = validation_res["validation/vs_benchmark/score_rate"]
                 last_score_rate = max(score_rate, 1e-3)
-                print(
+                say(
                     f"Score: {score_rate:.2f} | "
                     f"W: {validation_res['validation/vs_benchmark/win_rate']:.2f} | "
                     f"D: {validation_res['validation/vs_benchmark/draw_rate']:.2f} | "
@@ -288,7 +322,7 @@ def train_mnk_fused(
                 )
                 promoted = score_rate > config["benchmark_update_threshold_score"]
                 if promoted:
-                    print(f"--- New benchmark agent at step {end}! ---")
+                    say(f"--- New benchmark agent at step {end}! ---")
                     benchmark = snapshot(model)
                 exporter.export_model(model, config["architecture_name"], arch_params, end,
                                       is_benchmark_breaker=promoted)
@@ -296,13 +330,15 @@ def train_mnk_fused(
                     logger.log({"validation/new_benchmark_step": 1}, step=current_env_steps)
 
             if ckpt_interval and end - last_ckpt >= ckpt_interval:
-                save_checkpoint(ckpt_dir, end, {
-                    "trainer": trainer.save_state(),
-                    "benchmark": benchmark.state_dict(),
-                    "last_score_rate": float(last_score_rate),
-                    "iteration": end,
-                    "env_steps": current_env_steps,
-                })
+                trainer_state = trainer.global_state()
+                if is_coordinator():
+                    save_checkpoint(ckpt_dir, end, {
+                        "trainer": trainer_state,
+                        "benchmark": benchmark.state_dict(),
+                        "last_score_rate": float(last_score_rate),
+                        "iteration": end,
+                        "env_steps": current_env_steps,
+                    })
                 last_ckpt = end
         except KernelError:
             raise

@@ -1,7 +1,8 @@
 """Experiment tracking to a local JSONL file (counterpart of the JAX
 package's ``utils/metrics.py``, without wandb): the same record layout, a
 config record first (with the run's project, group and tags), then
-``{"_step", "_time", **metrics}`` lines."""
+``{"_step", "_time", **metrics}`` lines; ``NullMetricsLogger`` for the ranks
+that do not write."""
 
 from __future__ import annotations
 
@@ -65,6 +66,33 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.finish()
+
+
+class NullMetricsLogger:
+    """The logger of a rank other than 0 in a data-parallel run: every rank
+    drives the same loop, only rank 0 writes (``parallel.mesh.is_coordinator``).
+    ``MetricsLogger``'s surface, writing nothing."""
+
+    def __init__(self, run_name: Optional[str] = None, config: Optional[Dict[str, Any]] = None,
+                 **_):
+        self.config = dict(config or {})
+        self.run_name = run_name or time.strftime("%Y%m%d_%H%M%S")
+        self.jsonl_path = os.devnull
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        pass
+
+    def drop_after(self, step: int) -> int:
+        return 0
+
+    def finish(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
 
 
 def _jsonable(d: Dict[str, Any]) -> Dict[str, Any]:

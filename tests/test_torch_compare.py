@@ -345,7 +345,10 @@ def test_compare_models_cli_writes_the_jax_package_s_csvs(exported_models, tmp_p
     out_dir = compare_models.main([*exported_models, "--games", "4", "--board", "3", "3", "3",
                                    "--device", "cpu", "--output", str(tmp_path / "results")])
     assert os.path.dirname(out_dir) == str(tmp_path / "results")
-    assert sorted(os.listdir(out_dir)) == ["elo_ratings.csv", "match_results.csv"]
+    # The CSVs and, since the charts are ported, the ELO page and (where
+    # matplotlib imports, as here) its PNG.
+    assert sorted(os.listdir(out_dir)) == ["elo_progression.html", "elo_progression.png",
+                                           "elo_ratings.csv", "match_results.csv"]
     matches, ratings = read_rows(f"{out_dir}/match_results.csv"), read_rows(f"{out_dir}/elo_ratings.csv")
     assert list(matches[0]) == list(read_rows(MATCHES_CSV)[0])
     assert list(ratings[0]) == list(read_rows(ELO_CSV)[0])
