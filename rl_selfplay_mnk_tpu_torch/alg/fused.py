@@ -40,7 +40,11 @@ permutations), ``minibatch`` (``ppo_epochs * num_minibatches`` times) and
 
 The piecewise graphs and the eager pieces are the same code on the same
 buffers, so the two dispatches give the same bits wherever two eager runs
-do.
+do. Both put the same spans (``utils/tracing.py``) around the pieces or
+their replays, never inside a captured piece: ``iteration`` over
+``rollout`` (``draw`` and the steps), ``update`` (``update.prepare``,
+``update.epochs``) and ``finish``; the rollout and update of a block's
+iteration ``j`` are measured into ``phase_times[j]`` for the metrics line.
 
 Over the ranks of a data-parallel world (the learner's ``dp``) the pieces
 run on the rank's envs with the learner's collectives (``alg/ppo.py``), the
@@ -70,6 +74,7 @@ from ..selfplay.policies import NNPolicy
 from ..selfplay.wrapper import SelfPlayState
 from ..env.mnk_env import EnvState
 from ..parallel.mesh import shard_batched
+from ..utils.tracing import Interval, span
 from .ppo import (
     _METRIC_KEYS,
     PPOLearner,
@@ -171,6 +176,9 @@ class FusedTrainer:
         self.stacked = torch.zeros((max_block, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.graph_replays = 0
+        self.phase_times = [(Interval(dev), Interval(dev)) for _ in range(max_block)]
+        self.block_interval = Interval()
+        self._phase = 0  # the block's next iteration, for phase_times
 
     # -- the pieces of an iteration -------------------------------------
 
@@ -271,14 +279,27 @@ class FusedTrainer:
         batch), and ``epoch_indices``."""
         d = draws or {}
         rows = (lambda x: x) if self.shard is None else self.shard.take
-        self.draw(d.get("historical"), d.get("slot"))
-        for t in range(self.config.n_steps):
-            self.step(rows(d["noise"][t]) if "noise" in d else None,
-                      rows(d["sides"][t]) if "sides" in d else None)
-        self.prepare(d.get("epoch_indices"))
-        for _ in range(self.config.updates_per_iteration):
-            self.minibatch()
-        return self.finish()
+        rollout_t, update_t = self.next_phase_times()
+        with span("iteration"):
+            with span("rollout", rollout_t):
+                self.draw(d.get("historical"), d.get("slot"))
+                for t in range(self.config.n_steps):
+                    self.step(rows(d["noise"][t]) if "noise" in d else None,
+                              rows(d["sides"][t]) if "sides" in d else None)
+            with span("update", update_t):
+                with span("update.prepare"):
+                    self.prepare(d.get("epoch_indices"))
+                with span("update.epochs"):
+                    for _ in range(self.config.updates_per_iteration):
+                        self.minibatch()
+            with span("finish"):
+                return self.finish()
+
+    def next_phase_times(self):
+        """The (rollout, update) intervals of the block's next iteration."""
+        pair = self.phase_times[self._phase % len(self.phase_times)]
+        self._phase += 1
+        return pair
 
     # -- blocks, graphs and state --------------------------------------
 
@@ -290,6 +311,7 @@ class FusedTrainer:
                              f"{self.stacked.shape[0]}")
         self.it.fill_(it0)
         self.row.zero_()
+        self._phase = 0
         self.insert_weight.fill_(insert_weight)
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
@@ -364,36 +386,41 @@ class FusedTrainer:
         self.generator.set_state(state["generator"])
         self.policy_generator.set_state(state["policy_generator"])
 
-    def capture(self) -> None:
+    def capture(self) -> float:
         """Capture each piece as a CUDA graph. One eager warm-up iteration
         on a side stream runs first; the state is put back afterwards.
-        Raises on the CPU and on any failure of the capture."""
+        Raises on the CPU and on any failure of the capture. Returns the
+        host seconds of the ``capture`` span."""
         if self.device.type != "cuda":
             raise ValueError("CUDA graphs need the card: the scan dispatch does not run on "
                              f"{self.device}")
         if self.dp is not None:
             raise ValueError("the scan dispatch is not run over more than one rank (a gloo "
                              "collective cannot be captured); use fused_dispatch='step'")
-        saved = self.save_state(self.device)
-        self.row.zero_()  # the warm-up writes a metrics row
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.iteration()
-        current.wait_stream(side)
-        mempool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for name in PIECES:
-            graph = torch.cuda.CUDAGraph()
-            for generator in (self.generator, self.policy_generator):
-                graph.register_generator_state(generator)
-            with torch.cuda.graph(graph, pool=mempool):
-                getattr(self, name)()
-            graphs[name] = graph
-        self.graphs = graphs
-        self.load_state(saved)
-        torch.cuda.synchronize(self.device)
+        captured = Interval()
+        with span("capture", captured):
+            saved = self.save_state(self.device)
+            self.row.zero_()  # the warm-up writes a metrics row
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side), span("capture.warmup"):
+                self.iteration()
+            current.wait_stream(side)
+            with span("capture.graphs"):
+                mempool = torch.cuda.graph_pool_handle()
+                graphs = {}
+                for name in PIECES:
+                    graph = torch.cuda.CUDAGraph()
+                    for generator in (self.generator, self.policy_generator):
+                        graph.register_generator_state(generator)
+                    with torch.cuda.graph(graph, pool=mempool):
+                        getattr(self, name)()
+                    graphs[name] = graph
+            self.graphs = graphs
+            self.load_state(saved)
+            torch.cuda.synchronize(self.device)
+        return captured.host_s
 
     def replay(self, name: str, times: int = 1) -> None:
         graph = self.graphs[name]
@@ -412,9 +439,16 @@ def train_block(trainer: FusedTrainer, it0: int, block_len: int,
     trainer.begin_block(it0, insert_weight, block_len)
     cfg = trainer.config
     for _ in range(block_len):
-        trainer.replay("draw")
-        trainer.replay("step", cfg.n_steps)
-        trainer.replay("prepare")
-        trainer.replay("minibatch", cfg.updates_per_iteration)
-        trainer.replay("finish")
+        rollout_t, update_t = trainer.next_phase_times()
+        with span("iteration"):
+            with span("rollout", rollout_t):
+                trainer.replay("draw")
+                trainer.replay("step", cfg.n_steps)
+            with span("update", update_t):
+                with span("update.prepare"):
+                    trainer.replay("prepare")
+                with span("update.epochs"):
+                    trainer.replay("minibatch", cfg.updates_per_iteration)
+            with span("finish"):
+                trainer.replay("finish")
     return trainer.stacked[:block_len]

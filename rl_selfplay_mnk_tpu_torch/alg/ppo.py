@@ -53,14 +53,16 @@ the finished-episode sums (or the per-block sums) are all-reduced once a
 rollout. ``shard_groups`` (the layout) is a multiple of the world size: a
 world of one rank given the layout of d trains as d ranks do.
 
-Timing: ``rollout_time`` covers sampling and env stepping, ``learn_time``
-bootstrap + GAE + update; ``fps = n_steps * num_envs / rollout_time``.
+Timing: ``rollout_time`` and ``learn_time`` are the device seconds of the
+``rollout`` span (sampling and env stepping) and the ``update`` span
+(bootstrap, GAE and the epochs), read after the iteration's one host read
+(``utils/tracing.py``; the host's seconds on the CPU); ``fps = n_steps *
+num_envs / rollout_time``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -72,6 +74,7 @@ from ..models.registry import train_apply
 from ..ops.masked import entropy as masked_entropy
 from ..ops.masked import log_prob, mask_logits, masked_sample
 from ..selfplay.wrapper import selfplay_reset, selfplay_step
+from ..utils.tracing import Interval, span
 from .gae import compute_gae
 
 
@@ -717,14 +720,11 @@ def attach_batch_stat_sync(model, dp) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class PPOLearner:
     """Owns the model, optimizer, env state and generator; ``learn`` runs
-    one training iteration against a given opponent policy."""
+    one training iteration against a given opponent policy. The last
+    ``rollout`` and ``update`` are measured into ``rollout_interval`` and
+    ``update_interval``."""
 
     def __init__(self, model, config: PPOConfig, optimizer: PPOOptimizer,
                  generator: torch.Generator, device, dp=None):
@@ -744,6 +744,8 @@ class PPOLearner:
         self._obs = None
         self._ep_rew = None
         self._ep_len = None
+        self.rollout_interval = Interval(self.device)
+        self.update_interval = Interval(self.device)
 
     @property
     def optimizer(self):
@@ -772,12 +774,13 @@ class PPOLearner:
         self._ep_len = torch.zeros((e,), dtype=torch.float32, device=self.device)
 
     def rollout(self, opponent, draws: Optional[dict] = None):
-        if self._sp_state is None:
-            self.reset_envs(opponent)
-        (self._sp_state, self._obs, traj, fin, (self._ep_rew, self._ep_len)) = rollout_impl(
-            self.model, self.config, opponent, self._sp_state, self._obs,
-            self._ep_rew, self._ep_len, self.generator, draws, self.dp,
-        )
+        with span("rollout", self.rollout_interval):
+            if self._sp_state is None:
+                self.reset_envs(opponent)
+            (self._sp_state, self._obs, traj, fin, (self._ep_rew, self._ep_len)) = rollout_impl(
+                self.model, self.config, opponent, self._sp_state, self._obs,
+                self._ep_rew, self._ep_len, self.generator, draws, self.dp,
+            )
         return traj, fin
 
     def update(self, traj: dict, entropy_coef: float,
@@ -785,19 +788,23 @@ class PPOLearner:
                watch: Optional[GradWatch] = None) -> dict:
         """Prepare + ``ppo_epochs`` epochs (indices drawn unless injected;
         injected ones are over the whole batch)."""
-        flats = _update_prepare_impl(self.model, self.config, traj, self._obs, self.dp)
-        world, rank = (1, 0) if self.dp is None else (self.dp.world, self.dp.rank)
-        if epoch_indices is None:
-            epoch_indices = [
-                _minibatch_indices(self.config, self.generator, self.device, world, rank)
-                for _ in range(self.config.ppo_epochs)
-            ]
-        else:
-            epoch_indices = [rank_indices(self.config, idx, world, rank) for idx in epoch_indices]
-        return _update_epochs_impl(
-            self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices, watch,
-            self.dp,
-        )
+        with span("update", self.update_interval):
+            with span("update.prepare"):
+                flats = _update_prepare_impl(self.model, self.config, traj, self._obs, self.dp)
+                world, rank = (1, 0) if self.dp is None else (self.dp.world, self.dp.rank)
+                if epoch_indices is None:
+                    epoch_indices = [
+                        _minibatch_indices(self.config, self.generator, self.device, world, rank)
+                        for _ in range(self.config.ppo_epochs)
+                    ]
+                else:
+                    epoch_indices = [rank_indices(self.config, idx, world, rank)
+                                     for idx in epoch_indices]
+            with span("update.epochs"):
+                return _update_epochs_impl(
+                    self.model, self.config, self.optimizer, flats, entropy_coef, epoch_indices,
+                    watch, self.dp,
+                )
 
     def leaf_names(self) -> list:
         """The optimizer's parameters by their path in the JAX package's
@@ -813,16 +820,14 @@ class PPOLearner:
         """One training iteration; ``watch`` also gathers the update's
         gradient statistics (``layer_grad_norms``)."""
         cfg = self.config
-        t0 = time.perf_counter()
         traj, fin = self.rollout(opponent)
-        _sync(self.device)
-        rollout_time = time.perf_counter() - t0
-        t1 = time.perf_counter()
         grad_watch = self.grad_watch() if watch else None
         metrics = self.update(traj, entropy_coef, watch=grad_watch)
-        host = torch.cat([torch.stack(list(metrics.values())), fin.reshape(-1)]).tolist()
-        layer_grad_norms = grad_watch.fetch() if watch else None
-        learn_time = time.perf_counter() - t1
+        with span("read"):
+            host = torch.cat([torch.stack(list(metrics.values())), fin.reshape(-1)]).tolist()
+            layer_grad_norms = grad_watch.fetch() if watch else None
+        rollout_time = self.rollout_interval.device_s
+        learn_time = self.update_interval.device_s
         metrics_host = dict(zip(metrics, host))
         fin_host = host[len(metrics):]
         block_rewards = None

@@ -91,6 +91,7 @@ from .selfplay.wrapper import SelfPlayState
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.hardware import HardwareConfig, detect_hardware_config
 from .utils.metrics import MetricsLogger, NullMetricsLogger
+from .utils.tracing import span
 from .utils.model_export import ModelExporter, NullModelExporter
 
 
@@ -385,61 +386,65 @@ def train_mnk(
     current_env_steps = start_iteration * steps_per_iteration
     for i in range(start_iteration, total_iterations):
         try:
-            # Per opponent block: 15% a pool member, 85% the current network.
-            def draw_opponent():
-                if host_rng.random() < 0.15:
-                    if matchmaking:
-                        entry_id, member = pool.get_opponent()
-                        return member, "historical", entry_id
-                    return pool.get_random_opponent(), "historical", None
-                return None, "current_agent", None
+            with span("iteration"):
+                with span("opponent"):
+                    # Per opponent block: 15% a pool member, 85% the current network.
+                    def draw_opponent():
+                        if host_rng.random() < 0.15:
+                            if matchmaking:
+                                entry_id, member = pool.get_opponent()
+                                return member, "historical", entry_id
+                            return pool.get_random_opponent(), "historical", None
+                        return None, "current_agent", None
 
-            draws = [draw_opponent() for _ in range(k_opponents)]
-            current = snapshot(learner.model) if any(d[0] is None for d in draws) else None
-            opponents = [current if d[0] is None else d[0] for d in draws]
-            block_ids = [d[2] for d in draws]  # the league member playing each block
-            drawn_ids = [x for x in block_ids if x is not None]
-            source = ",".join(d[1] for d in draws)
-            logger.log({"training/opponent_source": source}, step=(i + 1) * steps_per_iteration)
-            if k_opponents > 1:
-                opponent = BlockPolicy(eval_apply, opponents, policy_generator)
-                opponent.shard = shard
-            else:
-                opponent = network_policy(opponents[0])
+                    draws = [draw_opponent() for _ in range(k_opponents)]
+                    current = (snapshot(learner.model) if any(d[0] is None for d in draws)
+                               else None)
+                    opponents = [current if d[0] is None else d[0] for d in draws]
+                    block_ids = [d[2] for d in draws]  # the league member playing each block
+                    drawn_ids = [x for x in block_ids if x is not None]
+                    source = ",".join(d[1] for d in draws)
+                    logger.log({"training/opponent_source": source},
+                               step=(i + 1) * steps_per_iteration)
+                    if k_opponents > 1:
+                        opponent = BlockPolicy(eval_apply, opponents, policy_generator)
+                        opponent.shard = shard
+                    else:
+                        opponent = network_policy(opponents[0])
 
-            ent_coef = entropy_coef_at(
-                config["entropy_coef"], config["entropy_coef_schedule"], i,
-                config["num_envs"], config["n_steps"],
-            )
-            watch_now = bool(watch_interval) and i % watch_interval == 0
-            metrics = learner.learn(opponent, ent_coef, watch=watch_now)
-            current_env_steps = (i + 1) * steps_per_iteration
+                ent_coef = entropy_coef_at(
+                    config["entropy_coef"], config["entropy_coef_schedule"], i,
+                    config["num_envs"], config["n_steps"],
+                )
+                watch_now = bool(watch_interval) and i % watch_interval == 0
+                metrics = learner.learn(opponent, ent_coef, watch=watch_now)
+                current_env_steps = (i + 1) * steps_per_iteration
 
-            # The league scores each drawn member on the episodes played
-            # against it: its own block's with K > 1 (nothing for a block that
-            # finished none), else the iteration's.
-            if matchmaking and drawn_ids:
-                if metrics.block_rewards is not None:
-                    for entry_id, reward in zip(block_ids, metrics.block_rewards):
-                        if entry_id is not None and reward is not None:
-                            pool.record_result(entry_id, (reward + 1.0) / 2.0)
-                else:
-                    for entry_id in drawn_ids:
-                        pool.record_result(entry_id, (metrics.mean_reward + 1.0) / 2.0)
+                # The league scores each drawn member on the episodes played
+                # against it: its own block's with K > 1 (nothing for a block that
+                # finished none), else the iteration's.
+                if matchmaking and drawn_ids:
+                    if metrics.block_rewards is not None:
+                        for entry_id, reward in zip(block_ids, metrics.block_rewards):
+                            if entry_id is not None and reward is not None:
+                                pool.record_result(entry_id, (reward + 1.0) / 2.0)
+                    else:
+                        for entry_id in drawn_ids:
+                            pool.record_result(entry_id, (metrics.mean_reward + 1.0) / 2.0)
 
-            current_lr = lr_schedule((i + 1) * learner.config.updates_per_iteration - 1)
-            log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr,
-                                 echo=is_coordinator())
-            summary["iterations"].append(metrics.scalars())
-            summary["opponent_sources"].append(source)
+                current_lr = lr_schedule((i + 1) * learner.config.updates_per_iteration - 1)
+                log_training_metrics(logger, metrics, i, current_env_steps, ent_coef, current_lr,
+                                     echo=is_coordinator())
+                summary["iterations"].append(metrics.scalars())
+                summary["opponent_sources"].append(source)
 
-            if watch_now:
-                record = dict(metrics.layer_grad_norms)
-                record.update(learner.param_stats(16 if config.get("watch_histograms") else 0))
-                logger.log(record, step=current_env_steps)
+                if watch_now:
+                    record = dict(metrics.layer_grad_norms)
+                    record.update(learner.param_stats(16 if config.get("watch_histograms") else 0))
+                    logger.log(record, step=current_env_steps)
 
-            if i % 20 == 0:
-                pool.add_opponent(snapshot(learner.model), weight=last_score_rate)
+                if i % 20 == 0:
+                    pool.add_opponent(snapshot(learner.model), weight=last_score_rate)
 
             if i > 0 and i % config["validation_interval"] == 0:
                 say(f"--- Running validation at step {i} ({current_env_steps:,} env steps) ---")

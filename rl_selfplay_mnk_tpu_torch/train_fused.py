@@ -58,7 +58,6 @@ Runs on the card unless ``device="cpu"`` is asked for. Usage::
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -86,6 +85,7 @@ from .train import (
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.hardware import detect_hardware_config
 from .utils.metrics import MetricsLogger
+from .utils.tracing import span
 
 POOL_PROB = 0.15  # the share of iterations that play a pool member
 POOL_INSERT_INTERVAL = 20  # iterations between pool inserts
@@ -176,15 +176,18 @@ def create_fused_trainer(config: Dict[str, Any], hw, max_block: int = 1, dp=None
 def run_block(trainer: FusedTrainer, dispatch: str, it0: int, block_len: int,
               insert_weight: float) -> torch.Tensor:
     """Iterations [it0, it0 + block_len) by ``dispatch``; returns the
-    stacked metrics, read on the host (the block's one read)."""
-    if dispatch == "scan":
-        stacked = train_block(trainer, it0, block_len, insert_weight)
-    else:
-        trainer.begin_block(it0, insert_weight, block_len)
-        for _ in range(block_len):
-            trainer.iteration()
-        stacked = trainer.stacked[:block_len]
-    return stacked.cpu()
+    stacked metrics, read on the host (the block's one read). The ``block``
+    span is measured into ``trainer.block_interval``."""
+    with span("block", trainer.block_interval):
+        if dispatch == "scan":
+            stacked = train_block(trainer, it0, block_len, insert_weight)
+        else:
+            trainer.begin_block(it0, insert_weight, block_len)
+            for _ in range(block_len):
+                trainer.iteration()
+            stacked = trainer.stacked[:block_len]
+        with span("read"):
+            return stacked.cpu()
 
 
 def train_mnk_fused(
@@ -193,8 +196,9 @@ def train_mnk_fused(
     device: Optional[str] = None,
 ) -> Dict[str, Any]:
     """The fused training loop. Returns ``train_mnk``'s summary, plus the
-    ``dispatch`` taken, the ``graph_replays`` and each block's wall time
-    (``block_walls``: iterations, seconds)."""
+    ``dispatch`` taken, the ``graph_replays``, each block's wall time
+    (``block_walls``: iterations, seconds of the ``block`` span) and under
+    scan the ``capture`` span's seconds (``capture_s``)."""
     check_fused_config(config)
     if config.get("watch_interval"):
         config = {**config, "watch_interval": 0}
@@ -240,9 +244,8 @@ def train_mnk_fused(
                                "export_dir": exporter.export_dir, "dispatch": dispatch,
                                "block_walls": []}
     if dispatch == "scan":
-        t0 = time.perf_counter()
-        trainer.capture()  # outside any handler: a capture that fails ends the run
-        summary["capture_s"] = time.perf_counter() - t0
+        # outside any handler: a capture that fails ends the run
+        summary["capture_s"] = trainer.capture()
     say(f"Starting fused training for {total_iterations} iterations "
         f"(validation every {vint}, dispatch={dispatch})")
 
@@ -253,7 +256,6 @@ def train_mnk_fused(
         block_len = end - i + 1
         current_env_steps = (end + 1) * steps_per_iteration
         insert_weight = max(last_score_rate, 1e-3) if config.get("pool_weighted") else 1.0
-        t0 = time.perf_counter()
         if dispatch == "scan":
             stacked = run_block(trainer, dispatch, i, block_len, insert_weight)
         else:
@@ -268,13 +270,13 @@ def train_mnk_fused(
                 summary["errors"].append(f"block {i}-{end}: {e!r}")
                 i = end + 1
                 continue
-        per_iter = (time.perf_counter() - t0) / block_len
-        summary["block_walls"].append((block_len, per_iter * block_len))
+        summary["block_walls"].append((block_len, trainer.block_interval.host_s))
         try:
             rows = [dict(zip(METRIC_KEYS, r)) for r in stacked.tolist()]
             for j, row in enumerate(rows):
                 it = i + j
                 cnt = row["fin_count"]
+                rollout_s, learn_s = (t.device_s for t in trainer.phase_times[j])
                 metrics = TrainingMetrics(
                     mean_reward=row["fin_reward"] / cnt if cnt else 0.0,
                     mean_length=row["fin_length"] / cnt if cnt else 0.0,
@@ -285,9 +287,9 @@ def train_mnk_fused(
                     clip_fraction=row["clip_fraction"],
                     explained_variance=row["explained_variance"],
                     approx_kl=row["approx_kl"],
-                    fps=steps_per_iteration / per_iter,
-                    rollout_time=per_iter,
-                    learn_time=per_iter,
+                    fps=steps_per_iteration / rollout_s if rollout_s > 0 else 0.0,
+                    rollout_time=rollout_s,
+                    learn_time=learn_s,
                 )
                 env_steps = (it + 1) * steps_per_iteration
                 source = "historical" if row["historical_opponent"] else "current_agent"

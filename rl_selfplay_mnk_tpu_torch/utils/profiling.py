@@ -8,10 +8,13 @@ path C does) for ``--warmup`` iterations, then traces one more
 iteration with ``torch.profiler`` and prints: the wall time of the rollout
 and the update, the device's busy time (sum of kernel times; one stream, so
 no overlap) and idle share for each, the kernel launches (for the update
-also a minibatch's share), the launches of the port's CUDA kernels, and the
-kernels that take the most device time. ``--watch`` traces a watch
-iteration's update, which also gathers the gradient statistics. The last
-line is one JSON object with those numbers.
+also a minibatch's share), the launches of the port's CUDA kernels, the
+kernels that take the most device time and, from the program's spans
+(``utils/tracing.py``, on while traced, so the Chrome traces carry them),
+each layer's launches, idle share and idle seconds (``layer_report``; the
+trace records host ops, which slow the eager launches). ``--watch``
+traces a watch iteration's update, which also gathers the gradient
+statistics. The last line is one JSON object with those numbers.
 
 ``--fused [--dispatch step|scan]`` traces instead one iteration of the
 fused trainer (``alg/fused.py``) at the same config: its wall time untraced
@@ -42,6 +45,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import functools
 import json
@@ -70,6 +74,7 @@ from ..ops.resblock import fused_residual_block
 from ..selfplay.policies import NNPolicy
 from ..train import build_config, create_learner
 from ..train_fused import create_fused_trainer, run_block
+from . import tracing
 from .hardware import detect_hardware_config
 
 
@@ -117,6 +122,114 @@ def kernel_times(prof) -> dict:
 
 
 @contextlib.contextmanager
+def spans_on():
+    """The program's spans (``utils/tracing.py``) recorded while open, from
+    none: a trace taken inside carries them as ranges."""
+    tracing.clear()
+    tracing.enable()
+    try:
+        yield
+    finally:
+        tracing.disable()
+
+
+def trace_events(prof):
+    """The card's work and the host's CUDA calls in a ``torch.profiler``
+    trace, in nanoseconds on the profiler's clock: (kernels, launches),
+    ``kernels`` [(start, end, correlation id, name)] by start (kernels,
+    copies and sets; no annotation), ``launches`` {correlation id: host
+    start} of the host's ``cuda*`` and ``cu*`` calls (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, whose id every node of the graph carries, ...)."""
+    kernels, launches = [], {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            if not evt.is_user_annotation():
+                kernels.append((evt.start_ns(), evt.end_ns(), evt.correlation_id(), evt.name()))
+        elif evt.name().startswith("cu"):
+            launches[evt.correlation_id()] = evt.start_ns()
+    kernels.sort()
+    return kernels, launches
+
+
+def innermost_span(records):
+    """host ns -> the index in ``records`` (``utils.tracing.records()``) of
+    the innermost span open then, or None."""
+    bounds = sorted({r[k] for r in records for k in ("start_ns", "end_ns")})
+    owner = []
+    for lo in bounds[:-1]:
+        # spans nest, so the open span that began last is the innermost
+        inside = [i for i, r in enumerate(records) if r["start_ns"] <= lo < r["end_ns"]]
+        owner.append(max(inside) if inside else None)
+
+    def at(t):
+        i = bisect.bisect_right(bounds, t) - 1
+        return owner[i] if 0 <= i < len(owner) else None
+    return at
+
+
+def layer_report(kernels, launches, records, layers=("rollout", "update"),
+                 minibatches: int = 1) -> dict:
+    """Each kernel given to the innermost span whose host interval holds
+    its launch call (robust to the launch queue: a span may end long before
+    its kernels run); ``unattributed`` counts the kernels whose launch call
+    is not in the trace, ``unspanned`` those launched outside every span.
+    Per layer in ``layers`` (the kernels of its spans and
+    theirs): ``launches``, ``idle_share`` (1 - the union of their intervals
+    over last end - first start) and ``idle_s``; each gap between busy
+    intervals goes to the span that launched the kernel ending it
+    (``idle_by_span``, by innermost name, "unspanned" outside every span).
+    ``update_launches_per_minibatch``, by launch and by time (the kernels
+    from the first to the last of the update's, by start)."""
+    at = innermost_span(records)
+    chains = []
+    for r in records:
+        names, p = {r["name"]}, r["parent"]
+        while p is not None:
+            names.add(records[p]["name"])
+            p = records[p]["parent"]
+        chains.append(names)
+    found = [launches.get(corr) for _, _, corr, _ in kernels]
+    owners = [None if t is None else at(t) for t in found]
+    out = {"kernels": len(kernels), "unattributed": sum(t is None for t in found),
+           "unspanned": sum(t is not None and o is None for t, o in zip(found, owners)),
+           "layers": {}, "idle_by_span": defaultdict(float)}
+    for layer in layers:
+        mine = [k for k, o in zip(kernels, owners) if o is not None and layer in chains[o]]
+        rec = {"launches": len(mine), "idle_share": None, "idle_s": 0.0}
+        if mine:
+            span_ns = max(k[1] for k in mine) - mine[0][0]
+            busy = sum(end - start for start, end in merged_intervals(mine))
+            rec["idle_share"] = 1.0 - busy / span_ns if span_ns else 0.0
+        out["layers"][layer] = rec
+    busy_end = None
+    for k, o in zip(kernels, owners):
+        if busy_end is not None and k[0] > busy_end:
+            gap = (k[0] - busy_end) / 1e9
+            out["idle_by_span"]["unspanned" if o is None else records[o]["name"]] += gap
+            for layer in layers:
+                if o is not None and layer in chains[o]:
+                    out["layers"][layer]["idle_s"] += gap
+        busy_end = k[1] if busy_end is None else max(busy_end, k[1])
+    out["idle_by_span"] = dict(out["idle_by_span"])
+    update = [i for i, o in enumerate(owners) if o is not None and "update" in chains[o]]
+    if update:
+        out["update_launches_per_minibatch"] = len(update) / minibatches
+        out["update_launches_per_minibatch_by_time"] = (update[-1] - update[0] + 1) / minibatches
+    return out
+
+
+def merged_intervals(kernels) -> list:
+    """The union of the kernels' intervals, as sorted disjoint [start, end]."""
+    merged = []
+    for start, end, *_ in kernels:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return merged
+
+
+@contextlib.contextmanager
 def forced_route(arch: str, route: str | None):
     """While open, the registry builds ``arch`` with every attention forced
     to ``route`` (None: the dispatch decides)."""
@@ -157,7 +270,8 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
         opponent = NNPolicy(eval_apply, snapshot(learner.model), generator)
         reset_launches()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                spans_on():
             t0 = time.perf_counter()
             if phase == "rollout":
                 traj, _ = learner.rollout(opponent)
@@ -165,12 +279,15 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
                 learner.update(traj, ent, watch=learner.grad_watch() if watch else None)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        layers = layer_report(*trace_events(prof), tracing.records(), (phase,),
+                              learner.config.updates_per_iteration)
         if trace:
             prof.export_chrome_trace(trace.replace(".json", f".{phase}.json"))
         times = kernel_times(prof)
         busy = sum(t for t, _ in times.values()) / 1e6
         phases[phase] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-                         "kernel_launches": sum(c for _, c in times.values())}
+                         "kernel_launches": sum(c for _, c in times.values()),
+                         "spans": layers}
         if phase == "update":
             phases[phase]["kernel_launches_per_minibatch"] = (
                 phases[phase]["kernel_launches"] / learner.config.updates_per_iteration)
@@ -183,7 +300,8 @@ def profile_iteration(warmup: int = 2, trace: str | None = None, top: int = 15,
     for phase, rec in phases.items():
         print(f"{phase}: wall {rec['wall_s']:.3f}s, device busy {rec['device_busy_s']:.3f}s, "
               f"idle share {rec['idle_share']:.3f}, {rec['kernel_launches']} kernel launches, "
-              f"port kernels {json.dumps(launches[phase])}")
+              f"port kernels {json.dumps(launches[phase])}; idle by span "
+              f"{json.dumps(rec['spans']['idle_by_span'])}")
         for r in kernels[phase]:
             print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
     return {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
@@ -218,13 +336,15 @@ def profile_fused_iteration(dispatch: str = "scan", warmup: int = 1, iters: int 
     reset_launches()
     replays = trainer.graph_replays
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, spans_on():
         t0 = time.perf_counter()
         run_block(trainer, dispatch, it, 1, 1.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if trace:
         prof.export_chrome_trace(trace.replace(".json", f".fused_{dispatch}.json"))
+    spans = layer_report(*trace_events(prof), tracing.records(),
+                         minibatches=trainer.config.updates_per_iteration)
     times = kernel_times(prof)
     busy = sum(t for t, _ in times.values()) / 1e6
     rec = {"device": torch.cuda.get_device_name(0), "architecture": config["architecture_name"],
@@ -234,13 +354,15 @@ def profile_fused_iteration(dispatch: str = "scan", warmup: int = 1, iters: int 
            "kernel_launches": sum(c for _, c in times.values()),
            "graph_replays": trainer.graph_replays - replays,
            "port_kernel_launches": read_launches(), "port_kernels_in_trace": trace_launches(times),
+           "spans": spans,
            "top_kernels": sorted(({"name": k[:90], "device_ms": t / 1e3, "count": c}
                                   for k, (t, c) in times.items()),
                                  key=lambda r: -r["device_ms"])[:top]}
     print(f"fused {dispatch}: {iteration_wall:.3f}s an iteration untraced (mean of {iters}), "
           f"traced wall {wall:.3f}s, device busy {busy:.3f}s, idle share {rec['idle_share']:.3f}, "
           f"{rec['kernel_launches']} kernel launches, {rec['graph_replays']} graph replays, "
-          f"port kernels in the trace {json.dumps(rec['port_kernels_in_trace'])}")
+          f"port kernels in the trace {json.dumps(rec['port_kernels_in_trace'])}; idle by span "
+          f"{json.dumps(spans['idle_by_span'])}")
     for r in rec["top_kernels"]:
         print(f"  {r['device_ms']:9.3f} ms {r['count']:7d}x  {r['name']}")
     if whole_graph:
