@@ -29,12 +29,17 @@ Phases, in order; any failure exits non-zero:
    at odd, small and wide ones, within the stated tolerances; all seven in
    bf16 (the tensor-core kernels) run twice: the same bits; their first,
    FMA versions on the same bf16 inputs are held to the same limit; K9 also
-   at (384, 81, 3, 32) on the inputs of seed 2;
+   at (384, 81, 3, 32) on the inputs of seed 2; then the LayerNorm kernels
+   (``ln_rows_fwd``, ``ln_rows_bwd``, ``ln_cols_sum``) forward and
+   backward against their plain version at the registry's widths over the
+   update minibatch's 8192 x 81 rows and 383, bf16 (twice: the same bits)
+   and f32, within the stated tolerances;
 5. the ResNet train path: ``train_mnk`` at the default config (9x9x5,
    ``resnet_b_s``, 384 envs, n_steps 256, batch 8192, 4 epochs) for 3
    iterations with a validation after the third, every kernel's launch
    counter set to 0 just before and read just after; losses and explained
-   variance finite, one validation, K1's and K2's counters above 0; then
+   variance finite, one validation, K1's, K2's and LayerNorm's counters
+   above 0 (every train and serving path below counts LayerNorm too); then
    the trained network's eval forward through the kernels against the
    unfolded plain-conv f32 forward on real positions, beside a bf16 control
    without the kernels;
@@ -98,7 +103,11 @@ Phases, in order; any failure exits non-zero:
    four ways through an attention kernel (fold, in-kernel fold, packed pair,
    lane slice) at the 9x9 and 13x13 batches of either kind, layout
    operations included, for the dispatch (the ``threshold`` line); one
-   ``kernels`` JSON line with all nine kernels.
+   ``kernels`` JSON line with all nine kernels and LayerNorm (at d = 56 over
+   the update minibatch's and the rollout's rows: the forward with and
+   without the statistics, the backward, the plain version, ``F.layer_norm``
+   on bf16 and its autograd backward as the library yardstick, the bound by
+   bytes, and each instantiation's registers, spill bytes and blocks an SM).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -219,6 +228,19 @@ THRESHOLD_SHAPES = ((8192, 81, 4, 14), (384, 81, 4, 14), (16, 81, 4, 14), (384, 
 # Eval forward against plain f32: the larger of these and twice the bf16
 # control's own error. A move probability is ~1/81 = 0.012, a value in [-1, 1].
 EVAL_TOL = {"p": 1e-3, "v": 1.5e-2}
+# LayerNorm (ops/layer_norm.py): the registry's widths (d = 56 of the
+# 9x9 transformers, a head's cells x planes on 9x9 and 13x13, a head's
+# hidden width, mlp_tiny's policy head) at the update minibatch's 8192 x 81
+# rows, and an odd count. Timed at d = 56 over the update minibatch's and
+# the rollout's rows.
+LN_CASES = [(rows, width) for width in (56, 81, 162, 169, 338, 256, 2)
+            for rows in (8192 * 81, 383)]
+LN_TIMED_ROWS = (8192 * 81, 384 * 81)
+LN_EPS = 1e-6
+# y and dx: (rtol, share of the largest) of the dtype's limit, plus 2^-16 of
+# the magnitudes of the terms the f32 arithmetic cancels; both sides round
+# the same f32 function once (bf16: the attention kernels' limit).
+LN_TOL = {"bfloat16": (2.0**-7, 2.0**-10), "float32": (2.0**-16, 2.0**-16)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 outside
 
@@ -518,6 +540,71 @@ def phase_attention(torch, dev):
     return errors
 
 
+def ln_inputs(torch, dev, dtype, rows, width, seed=0):
+    """x (a mean of 1.5 and a spread of 2), dy, and f32 weight and bias
+    near 1 and 0, for one LayerNorm call."""
+    g = torch.Generator(device=dev).manual_seed(seed + rows + 1000 * width)
+    x = (torch.randn(rows, width, device=dev, generator=g) * 2.0 + 1.5).to(dtype)
+    dy = torch.randn(rows, width, device=dev, generator=g).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(width, device=dev, generator=g)
+    bias = 0.2 * torch.randn(width, device=dev, generator=g)
+    return x, dy, weight, bias
+
+
+def ln_forward_backward(torch, fn, x, dy, weight, bias):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = fn(*leaves, LN_EPS)
+    y.backward(dy)
+    return (y.detach(), *(t.grad for t in leaves))
+
+
+def phase_layer_norm(torch, dev):
+    """The LayerNorm kernels (``ln_rows_fwd``, ``ln_rows_bwd``,
+    ``ln_cols_sum``) against their plain version, forward and backward, at
+    ``LN_CASES`` in bf16 and f32: y and dx as shares of ``LN_TOL``'s limit,
+    dweight and dbias of 2^-16 of the sums of their terms' magnitudes; bf16
+    twice, the same bits. Returns the max abs error of y per (dtype, rows,
+    width)."""
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+
+    errors = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = dtype_name(dtype)
+        rtol, atol_of_max = LN_TOL[name]
+        for rows, width in LN_CASES:
+            x, dy, weight, bias = ln_inputs(torch, dev, dtype, rows, width)
+            got = ln_forward_backward(torch, layer_norm, x, dy, weight, bias)
+            if dtype == torch.bfloat16:
+                again = ln_forward_backward(torch, layer_norm, x, dy, weight, bias)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"LayerNorm {name} {rows}x{width}: two runs differ")
+            want = ln_forward_backward(torch, layer_norm_reference, x, dy, weight, bias)
+            # the magnitudes of the terms each f32 result sums: xh = (x - mean)
+            # * rstd as (|x| + |mean|) * rstd, which a rounding of the mean moves
+            xf = x.double()
+            mean = xf.mean(1, keepdim=True)
+            rstd = torch.rsqrt(xf.var(1, unbiased=False, keepdim=True) + LN_EPS)
+            xh = (xf.abs() + mean.abs()) * rstd
+            gy = (dy.double() * weight.double()).abs()
+            terms = [None, rstd * (gy + gy.mean(1, keepdim=True) + xh * (gy * xh).mean(1, keepdim=True)),
+                     (dy.double().abs() * xh).sum(0), dy.double().abs().sum(0)]
+            shares = []
+            for i, (g, w, t) in enumerate(zip(got, want, terms)):
+                g, w = g.double(), w.double()
+                limit = (rtol * w.abs() + atol_of_max * w.abs().max()) if i < 2 else 0.0
+                if t is not None:
+                    limit = limit + 2.0**-16 * t
+                shares.append(float(((g - w).abs() / limit).nan_to_num(nan=0.0).max()))
+            errors[(name, rows, width)] = float((got[0].float() - want[0].float()).abs().max())
+            ok = max(shares) <= 1 and all(bool(torch.isfinite(g).all()) for g in got)
+            print(f"LayerNorm {name} {rows}x{width}: worst share of the limit y {shares[0]:.3f} "
+                  f"dx {shares[1]:.3f} dweight {shares[2]:.3f} dbias {shares[3]:.3f}"
+                  f"{', same bits twice' if dtype == torch.bfloat16 else ''} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"LayerNorm {name} {rows}x{width} outside its tolerance")
+    return errors
+
+
 def phase_train(torch, dev, label, config, iterations, launched, not_launched=(), validations=1):
     """``iterations`` of ``train_mnk`` with ``config``: every kernel's launch
     count set to 0 just before and read just after. Kernels in ``launched``
@@ -671,7 +758,7 @@ def phase_bench(torch, label):
     if not (math.isfinite(record["value"]) and record["value"] > 0):
         raise AssertionError(f"{label}: {record}")
     for name, count in launches.items():
-        if (count > 0) != (name in ("env_step", "resblock")):
+        if (count > 0) != (name in ("env_step", "resblock", "layer_norm")):
             raise AssertionError(f"{label}: kernel {name} launched {count} times")
     print(f"{label}: {record['value']} env-steps/s in {wall:.1f}s with set-up; launches "
           f"{json.dumps(launches)}")
@@ -754,8 +841,9 @@ def phase_fused(torch, dev, tmp, default_pair):
     from rl_selfplay_mnk_tpu_torch.utils.profiling import profile_fused_iteration
 
     paths = {}
-    for arch, launched in (("resnet_b_s", ("env_step", "resblock")),
-                           ("transformer_b_s", ("env_step", "attn_lane_slice_fwd") + default_pair)):
+    for arch, launched in (("resnet_b_s", ("env_step", "resblock", "layer_norm")),
+                           ("transformer_b_s",
+                            ("env_step", "attn_lane_slice_fwd", "layer_norm") + default_pair)):
         label = f"fused {arch} 9x9x5"
         iterations = 4
         runs = [fused_run(torch, dev, label, arch, d, tmp, iterations)
@@ -1056,9 +1144,9 @@ def phase_distributed(torch, dev, tmp):
         base + ["--run-name", "dist_resnet"],
         base + ["--run-name", "dist_zero", "--arch", "transformer_b_s", "--zero-opt"],
     ]
-    launched = {"dist_resnet": ("env_step", "resblock"),
+    launched = {"dist_resnet": ("env_step", "resblock", "layer_norm"),
                 "dist_zero": ("env_step", "attn_lane_slice_fwd", "attn_folded_fwd",
-                              "attn_folded_bwd")}
+                              "attn_folded_bwd", "layer_norm")}
     # Each rank its own argvs (the launcher passes one kwargs; a rank picks
     # its list by its index). The two ranks start, join and import now, and
     # train once world 1 is done (``start_file``), so that no two runs share
@@ -1531,7 +1619,95 @@ def time_resblock(torch, F, dev, b, c=32):
             "library_call_ms": lib_call}
 
 
-def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors):
+def time_layer_norm(torch, dev, rows, width=56):
+    """LayerNorm over ``rows`` rows of ``width`` in bf16, as the update
+    (forward with the statistics, backward) and the rollout (forward alone)
+    run it: the kernels, the plain version (cast, f32 ``F.layer_norm``,
+    cast, and autograd's backward of the three), ``F.layer_norm`` on bf16
+    (the library yardstick, which the port never calls), and the bound by
+    bytes."""
+    import torch.nn.functional as F
+
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_fwd,
+        layer_norm_reference,
+    )
+
+    x, dy, weight, bias = ln_inputs(torch, dev, torch.bfloat16, rows, width, seed=4)
+    _, mean, rstd = layer_norm_fwd(x, weight, bias, LN_EPS, stats=True)
+    ms, call = timed(lambda: layer_norm_fwd(x, weight, bias, LN_EPS, stats=True), "ln_rows_fwd")
+    rollout_ms, rollout_call = timed(lambda: layer_norm_fwd(x, weight, bias, LN_EPS, stats=False),
+                                     "ln_rows_fwd")
+    bwd_ms, bwd_call = timed(lambda: layer_norm_bwd(x, dy, weight, mean, rstd))
+    with torch.no_grad():
+        plain, plain_call = timed(lambda: layer_norm_reference(x, weight, bias, LN_EPS))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    y_plain = layer_norm_reference(*leaves, LN_EPS)
+    plain_bwd, plain_bwd_call = timed(
+        lambda: torch.autograd.grad(y_plain, leaves, dy, retain_graph=True))
+    wb, bb = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+    with torch.no_grad():
+        lib, lib_call = timed(lambda: F.layer_norm(x, (width,), wb, bb, LN_EPS))
+    lib_leaves = [t.detach().clone().requires_grad_(True) for t in (x, wb, bb)]
+    y_lib = F.layer_norm(lib_leaves[0], (width,), lib_leaves[1], lib_leaves[2], LN_EPS)
+    lib_bwd, lib_bwd_call = timed(
+        lambda: torch.autograd.grad(y_lib, lib_leaves, dy, retain_graph=True))
+    elems = rows * width
+    # forward: x in, y out, each row's mean and rstd out; backward: x, dy,
+    # mean and rstd in, dx out; weight, bias and their gradients once
+    fwd_bound, fwd_by = bound(2 * elems * 2 + rows * 8 + 2 * width * 4, 8 * elems, "float32")
+    rollout_bound, _ = bound(2 * elems * 2 + 2 * width * 4, 8 * elems, "float32")
+    bwd_bound, bwd_by = bound(3 * elems * 2 + rows * 8 + 3 * width * 4, 12 * elems, "float32")
+    return {"shape": [rows, width], "ms": ms, "plain_ms": plain, "bound_ms": fwd_bound,
+            "bound_by": fwd_by, "library_ms": lib, "call_ms": call, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call,
+            "no_statistics": {"ms": rollout_ms, "call_ms": rollout_call, "bound_ms": rollout_bound},
+            "backward": {"ms": bwd_ms, "plain_ms": plain_bwd, "bound_ms": bwd_bound,
+                         "bound_by": bwd_by, "library_ms": lib_bwd, "call_ms": bwd_call,
+                         "plain_call_ms": plain_bwd_call, "library_call_ms": lib_bwd_call}}
+
+
+def layer_norm_record(torch, dev, launches, ln_errors):
+    """The LayerNorm kernels' entry of the ``kernels`` line: at the update
+    minibatch's 8192 x 81 rows of d = 56 (the entry's own numbers) and the
+    rollout's 384 x 81, with each instantiation's registers, spill bytes
+    and blocks an SM at the registry's widths."""
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import kernel_resources, row_plan
+
+    main, rollout = (time_layer_norm(torch, dev, rows) for rows in LN_TIMED_ROWS)
+    resources = {}
+    for width in (56, 81, 162, 128, 256, 338):
+        plan = row_plan(width, 2)
+        resources[width] = {"plan": plan._asdict(),
+                            **{kind: kernel_resources(True, plan, kind == "backward", width)
+                               for kind in ("forward", "backward")}}
+    record = {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "rl_selfplay_mnk_tpu_torch/csrc/layer_norm.cu",
+        "replaces": None,
+        "launches": launches["layer_norm"][0],
+        "launches_on": launches["layer_norm"][1],
+        "max_abs_err": ln_errors[("bfloat16", LN_TIMED_ROWS[0], 56)],
+        **{key: value for key, value in main.items() if key != "shape"},
+        "library": "F.layer_norm on bf16 (forward; backward: autograd's)",
+        "shape": main["shape"],
+        "at_rollout_batch": rollout,
+        "instantiations": resources,
+    }
+    for r in (main, rollout):
+        b = r["backward"]
+        print(f"  LayerNorm at {tuple(r['shape'])}: forward without statistics "
+              f"{r['no_statistics']['ms']:.5f} ms (bound {r['no_statistics']['bound_ms']:.5f}); "
+              f"backward device {b['ms']:.5f} ms, per call {b['call_ms']:.5f} ms; plain "
+              f"{b['plain_ms']:.5f} ms; library {b['library_ms']:.5f} ms; bound "
+              f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+    print(f"  LayerNorm instantiations (bf16): {json.dumps(resources)}")
+    return record
+
+
+def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors, ln_errors):
     import torch.nn.functional as F
 
     from rl_selfplay_mnk_tpu_torch.env.lines import num_lines
@@ -1585,6 +1761,7 @@ def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors):
         },
     ]
     kernels += attention_kernel_records(torch, dev, launches, attn_errors)
+    kernels.append(layer_norm_record(torch, dev, launches, ln_errors))
     for k in kernels:
         first = f" (first version {k['first_version_ms']:.5f})" if "first_version_ms" in k else ""
         print(f"timing {k['name']}: device {k['ms']:.5f} ms{first}, per call {k['call_ms']:.5f} ms; "
@@ -1635,6 +1812,7 @@ def main() -> int:
     k1_error = phase_k1(torch, np, dev)
     k2_errors = phase_k2(torch, dev)
     attn_errors = phase_attention(torch, dev)
+    ln_errors = phase_layer_norm(torch, dev)
 
     import functools
     import tempfile
@@ -1656,7 +1834,7 @@ def main() -> int:
         config.update(validation_interval=2, export_dir=f"{tmp}/models")
         label = "resnet_b_s 9x9x5"
         paths[label], summary = phase_train(
-            torch, dev, label, config, 3, ("env_step", "resblock"),
+            torch, dev, label, config, 3, ("env_step", "resblock", "layer_norm"),
             folded + infold + packed + ("attn_lane_slice_fwd",))
         phase_eval_check(torch, np, dev, summary["model"])
         sources = summary["opponent_sources"]
@@ -1667,7 +1845,8 @@ def main() -> int:
         config.update(validation_interval=1, export_dir=f"{tmp}/models")
         label_a = "transformer_b_s 9x9x5"
         paths[label_a], summary = phase_train(
-            torch, dev, label_a, config, 4, ("env_step", "attn_lane_slice_fwd") + default_pair,
+            torch, dev, label_a, config, 4,
+            ("env_step", "attn_lane_slice_fwd", "layer_norm") + default_pair,
             packed + other_pair + ("resblock",), validations=3)
         exports_a = summary["export_dir"]
         phase_watch_record(summary, config)
@@ -1676,7 +1855,7 @@ def main() -> int:
         config.update(validation_interval=2, export_dir=f"{tmp}/models")
         label_b = "transformer_b_s_w 13x13x5"
         paths[label_b], summary = phase_train(
-            torch, dev, label_b, config, 3, ("env_step",) + packed,
+            torch, dev, label_b, config, 3, ("env_step", "layer_norm") + packed,
             folded + infold + ("resblock", "attn_lane_slice_fwd"))
         phase_transformer_eval_check(torch, np, dev, summary["model"], (13, 13, 5))
 
@@ -1690,7 +1869,7 @@ def main() -> int:
             factory, attention_fn=functools.partial(tiny_head_attention, route=other_route))
         try:
             paths[label_c], _ = phase_train(
-                torch, dev, label_c, config, 2, ("env_step",) + other_pair,
+                torch, dev, label_c, config, 2, ("env_step", "layer_norm") + other_pair,
                 packed + default_pair + ("resblock", "attn_lane_slice_fwd"))
         finally:
             registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = factory
@@ -1705,14 +1884,14 @@ def main() -> int:
         label_9 = "tournament 9x9x5"
         paths[label_9] = phase_tournament(
             torch, label_9, ["models/tpu_smoke30", exports_a], (9, 9, 5), f"{tmp}/results",
-            ("env_step", "resblock", "attn_lane_slice_fwd"),
+            ("env_step", "resblock", "attn_lane_slice_fwd", "layer_norm"),
             "tpu_smoke30/model_00005", "tpu_smoke30/model_00030", 24,
             rising=("tpu_smoke30/model_00005", "tpu_smoke30/model_00015", "tpu_smoke30/model_00030"))
         full13 = "evidence/exports_full13_transformer_b_s_w"
         label_13 = "tournament 13x13x5"
         paths[label_13] = phase_tournament(
             torch, label_13, [f"{full13}/model_{i:05d}.msgpack" for i in (5, 1345, 2690, 4365)],
-            (13, 13, 5), f"{tmp}/results", ("env_step", "attn_packed_fwd"),
+            (13, 13, 5), f"{tmp}/results", ("env_step", "attn_packed_fwd", "layer_norm"),
             "full13_transformer_b_s_w/model_00005", "full13_transformer_b_s_w/model_04365", 28)
         phase_play(torch, "models/tpu_smoke30")
 
@@ -1726,7 +1905,7 @@ def main() -> int:
         else:
             raise AssertionError(f"kernel {name} was launched on none of the paths")
     threshold = phase_threshold(torch, dev)
-    kernels = phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors)
+    kernels = phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors, ln_errors)
 
     print(json.dumps({"threshold": threshold}))
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.layer_norm import layer_norm as ops_layer_norm
+
 RELU_GAIN = math.sqrt(2.0)
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
@@ -38,16 +40,15 @@ def conv3x3(x: torch.Tensor, layer: nn.Conv2d, dtype) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm with f32 statistics, output in x's dtype (flax semantics)."""
-    xf = x.to(torch.float32)
+    """LayerNorm with f32 statistics, output in x's dtype (flax semantics):
+    ``ops.layer_norm`` (the kernels on the card)."""
     if layer.normalized_shape == (1,):
         # A norm over one element (mlp_tiny's value head) is exactly its bias.
         # F.layer_norm leaves a rounding of x - mean there, which 1/sqrt(eps)
         # = 1000 carries into the gradients.
-        y = (xf - xf) * layer.weight + layer.bias
-    else:
-        y = F.layer_norm(xf, layer.normalized_shape, layer.weight, layer.bias, layer.eps)
-    return y.to(x.dtype)
+        xf = x.to(torch.float32)
+        return ((xf - xf) * layer.weight + layer.bias).to(x.dtype)
+    return ops_layer_norm(x, layer.weight, layer.bias, layer.eps)
 
 
 class BatchNorm(nn.Module):

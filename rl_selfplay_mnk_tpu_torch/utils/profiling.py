@@ -70,6 +70,7 @@ from ..ops.attention import (
     tiny_head_attention,
 )
 from ..ops.env_step import fused_step
+from ..ops.layer_norm import layer_norm
 from ..ops.resblock import fused_residual_block
 from ..selfplay.policies import NNPolicy
 from ..train import build_config, create_learner
@@ -89,13 +90,19 @@ PORT_KERNELS = {
     "attn_infold_bwd": attention_infold_bwd,
     "attn_packed_fwd": attention_packed_fwd,
     "attn_packed_bwd": attention_packed_bwd,
+    "layer_norm": layer_norm,
 }
+# The kernel symbols of a wrapper whose symbols do not begin with its name
+# (ATen's own LayerNorm kernels hold "layer_norm").
+KERNEL_SYMBOLS = {"layer_norm": ("ln_rows_", "ln_cols_")}
 
 
 def trace_launches(times) -> dict:
     """The port's kernels in a trace, by name: each kernel symbol begins
-    with its wrapper's name (``env_step_kernel``, ``attn_folded_fwd_mma``...)."""
-    return {name: sum(c for kernel, (_, c) in times.items() if name in kernel)
+    with its wrapper's name (``env_step_kernel``, ``attn_folded_fwd_mma``...)
+    or with one of its ``KERNEL_SYMBOLS``."""
+    return {name: sum(c for kernel, (_, c) in times.items()
+                      if any(s in kernel for s in KERNEL_SYMBOLS.get(name, (name,))))
             for name in PORT_KERNELS}
 
 

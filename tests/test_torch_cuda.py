@@ -684,6 +684,166 @@ def test_attention_raises_beyond_the_kernels_limits(device):
             attn.attention_packed_bwd(q, q, q, q, 1, q.shape[2])
 
 
+# LayerNorm (ops/layer_norm.py) against its plain version: every width a
+# registry model normalises over but 1 (models/common.py's exact bias) and
+# 64, at one row, a few, the rollout's 384 boards of 81 tokens and the
+# update minibatch's 8192. Both sides do the same f32 arithmetic up to the
+# order of its sums and round y and dx once, so y and dx differ by the
+# dtype's part of the limit (bf16: the attention kernels' 2^-7 * |plain| +
+# 2^-10 * max|plain|; f32: 2^-16 of each element and of the largest) plus
+# 2^-16 of the magnitudes of the terms that the f32 sums cancel (dx at width
+# 2 is such a remainder); dweight and dbias, f32 sums over the rows in
+# another order, within 2^-16 of the sum of their terms' magnitudes.
+LN_WIDTHS = (2, 56, 81, 96, 128, 162, 169, 256, 338)
+LN_ROWS = (1, 7, 384 * 81, 8192 * 81)
+LN_F32_TOL = 2.0**-16
+
+
+def ln_inputs(device, dtype, rows, width, seed=0):
+    """x with a mean of 1.5 (E[x^2] - E[x]^2 would lose digits), dy, and
+    f32 weight and bias near 1 and 0."""
+    g = torch.Generator(device=device).manual_seed(seed + rows + 1000 * width)
+    x = (torch.randn(rows, width, device=device, generator=g) * 2.0 + 1.5).to(dtype)
+    dy = torch.randn(rows, width, device=device, generator=g).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(width, device=device, generator=g)
+    bias = 0.2 * torch.randn(width, device=device, generator=g)
+    return x, dy, weight, bias
+
+
+def ln_forward_backward(fn, x, dy, weight, bias):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = fn(*leaves, 1e-6)
+    y.backward(dy)
+    return (y.detach(), *(t.grad for t in leaves))
+
+
+def ln_terms(x, dy, weight):
+    """The magnitudes of the terms each f32 result sums, in float64: dx =
+    rstd * (g - mean(g) - xh * mean(g * xh)) with g = dy * weight; dweight =
+    sum(dy * xh), dbias = sum(dy) over the rows; xh = (x - mean) * rstd
+    counted as (|x| + |mean|) * rstd, since a rounding of the mean moves it
+    by that much however near x is to the mean."""
+    xf, dyf = x.double(), dy.double()
+    mean = xf.mean(1, keepdim=True)
+    rstd = torch.rsqrt(xf.var(1, unbiased=False, keepdim=True) + 1e-6)
+    xh = (xf.abs() + mean.abs()) * rstd
+    g = (dyf * weight.double()).abs()
+    dx = rstd * (g + g.mean(1, keepdim=True) + xh * (g * xh).mean(1, keepdim=True))
+    return {"y": None, "dx": dx, "dweight": (dyf.abs() * xh).sum(0), "dbias": dyf.abs().sum(0)}
+
+
+def assert_ln_close(got, want, dtype, what, terms):
+    got, want = got.double(), want.double()
+    assert torch.isfinite(got).all(), what
+    err = (got - want).abs()
+    if what in ("dweight", "dbias"):
+        limit = 0.0
+    elif dtype == torch.float32:
+        limit = LN_F32_TOL * (want.abs() + want.abs().max())
+    else:
+        limit = ATTN_BF16_RTOL * want.abs() + ATTN_BF16_ATOL_OF_MAX * want.abs().max()
+    if terms is not None:
+        limit = limit + LN_F32_TOL * terms
+    excess = (err / limit).nan_to_num(nan=0.0, posinf=float("inf")).max()
+    assert excess <= 1, f"{what}: the worst error is {float(excess)} of its limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", LN_ROWS)
+@pytest.mark.parametrize("width", LN_WIDTHS)
+def test_layer_norm_kernels_within_tolerance(device, dtype, rows, width):
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+
+    x, dy, weight, bias = ln_inputs(device, dtype, rows, width)
+    got = ln_forward_backward(layer_norm, x, dy, weight, bias)
+    want = ln_forward_backward(layer_norm_reference, x, dy, weight, bias)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert got[2].dtype == got[3].dtype == torch.float32
+    terms = ln_terms(x, dy, weight)
+    for name, g, w in zip(("y", "dx", "dweight", "dbias"), got, want):
+        assert_ln_close(g, w, dtype, name, terms[name])
+
+
+@pytest.mark.parametrize("width,rows", [(56, 8192 * 81), (162, 8192), (338, 4096), (2, 384)])
+def test_layer_norm_same_bits_twice(device, width, rows):
+    """No atomics: two runs give the same y, dx, dweight and dbias."""
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import layer_norm
+
+    args = ln_inputs(device, torch.bfloat16, rows, width, seed=1)
+    first = ln_forward_backward(layer_norm, *args)
+    second = ln_forward_backward(layer_norm, *args)
+    for name, a, b in zip(("y", "dx", "dweight", "dbias"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_layer_norm_replays_in_a_cuda_graph(device):
+    """Forward and backward captured in a CUDA graph replay the eager bits."""
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import layer_norm
+
+    x, dy, weight, bias = ln_inputs(device, torch.bfloat16, 384 * 81, 56, seed=2)
+    eager = ln_forward_backward(layer_norm, x, dy, weight, bias)
+    static = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # warm-up outside the capture, as the fused trainer does
+        layer_norm(*static, 1e-6).backward(dy)
+    torch.cuda.current_stream(device).wait_stream(side)
+    for t in static:
+        t.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = layer_norm(*static, 1e-6)
+        grads = torch.autograd.grad(y, static, dy)
+    with torch.no_grad():  # other inputs first: the replay must read them
+        for t, fresh in zip(static, (x, weight, bias)):
+            t.copy_(fresh + 1.0)
+    graph.replay()
+    moved = ln_forward_backward(layer_norm, x + 1.0, dy, weight + 1.0, bias + 1.0)
+    for name, g, w in zip(("y", "dx", "dweight", "dbias"), (y, *grads), moved):
+        assert torch.equal(g, w), name
+    assert not torch.equal(y, eager[0])
+
+
+def test_layer_norm_counts_and_limits(device):
+    """One launch a forward (no statistics without a gradient), two a
+    backward; a width above the kernels' maximum raises; a transformer's
+    forward takes the kernel for every norm and ATen's LayerNorm for none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rl_selfplay_mnk_tpu_torch.models import create_model_from_architecture, init_network
+    from rl_selfplay_mnk_tpu_torch.ops.cuda_build import KernelError
+    from rl_selfplay_mnk_tpu_torch.ops.layer_norm import MAX_WIDTH, layer_norm, layer_norm_fwd
+    from rl_selfplay_mnk_tpu_torch.utils.profiling import kernel_times
+
+    x, dy, weight, bias = ln_inputs(device, torch.bfloat16, 100, 56)
+    before = layer_norm.launches
+    with torch.no_grad():
+        layer_norm(x, weight, bias, 1e-6)
+    assert layer_norm.launches == before + 1
+    ln_forward_backward(layer_norm, x, dy, weight, bias)
+    assert layer_norm.launches == before + 4
+    assert layer_norm_fwd(x, weight, bias, 1e-6, stats=False)[1] is None
+    wide = torch.zeros((3, MAX_WIDTH + 1), device=device, dtype=torch.bfloat16)
+    ones = torch.ones(MAX_WIDTH + 1, device=device)
+    with pytest.raises(KernelError, match="width"):
+        layer_norm(wide, ones, ones, 1e-6)
+
+    model, _ = create_model_from_architecture("transformer_b_s", (2, 9, 9), 81,
+                                              dtype=torch.bfloat16)
+    model = init_network(model).to(device)
+    norms = sum(isinstance(m, torch.nn.LayerNorm) for m in model.modules())
+    obs = torch.zeros((16, 2, 9, 9), device=device)
+    before = layer_norm.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, value = model(obs)
+        (logits.sum() + value.sum()).backward()
+        torch.cuda.synchronize()
+    assert layer_norm.launches - before == 3 * norms
+    names = list(kernel_times(prof))
+    assert any("ln_rows_fwd" in n for n in names) and any("ln_rows_bwd" in n for n in names)
+    assert not any("layer_norm" in n for n in names), names
+
+
 # The fused trainer's graphs (alg/fused.py) at a small width of the default
 # config: 9x9x5 resnet_b_s, 64 envs, 32 steps, batch 512 (4 minibatches an
 # epoch), a pool of 4.
