@@ -81,35 +81,38 @@ def _rows(ids: torch.Tensor, layout) -> torch.Tensor:
 @torch.no_grad()
 def rollout_forward(cfg: dict, weights: dict, rec: dict, prec) -> tuple:
     """The learner's train-mode forward at every step (BatchNorm over that
-    step's envs): (log-probabilities of the recorded actions (T, E),
-    values (T, E), bootstrap values (E,))."""
+    step's envs; envs in blocks of ``ref.row_blocks``): (log-probabilities
+    of the recorded actions (T, E), values (T, E), bootstrap values (E,))."""
     t_len, e = rec["actions"].shape
     logp = torch.empty((t_len, e), device=rec["actions"].device)
     values = torch.empty_like(logp)
-    for t in range(t_len):
-        logits, v = ref.forward(cfg, weights, rec["obs"][t].float(), True, prec)
-        lp = ref.masked_log_softmax(logits, rec["mask"][t])
-        logp[t] = lp.gather(1, rec["actions"][t].long()[:, None])[:, 0]
-        values[t] = v
-    _, last = ref.forward(cfg, weights, rec["final_obs"].float(), True, prec)
+    last = torch.empty((e,), device=logp.device)
+    for rows in ref.row_blocks(cfg, e, train=True):
+        for t in range(t_len):
+            logits, v = ref.forward(cfg, weights, rec["obs"][t, rows].float(), True, prec)
+            lp = ref.masked_log_softmax(logits, rec["mask"][t, rows])
+            logp[t, rows] = lp.gather(1, rec["actions"][t, rows].long()[:, None])[:, 0]
+            values[t, rows] = v
+        last[rows] = ref.forward(cfg, weights, rec["final_obs"][rows].float(), True, prec)[1]
     return logp, values, last
 
 
 @torch.no_grad()
 def opponent_z(cfg: dict, weights: dict, env: dict) -> float:
     """|z| of the opponent's recorded moves under the reference's eval-mode
-    policy (the opponent is the starting weights in the first iteration)."""
+    policy (the opponent is the starting weights in the first iteration),
+    in blocks of at most ``_CHUNK`` moves (``ref.row_blocks``)."""
     obs, mask, cell = env["opp_obs"], env["opp_mask"], env["opp_cell"]
     if obs.shape[0] == 0:
         return 0.0
     total, var = 0.0, 0.0
-    for i in range(0, obs.shape[0], _CHUNK):
-        logits, _ = ref.forward(cfg, weights, obs[i:i + _CHUNK], False)
-        lp = ref.masked_log_softmax(logits, mask[i:i + _CHUNK])
+    for rows in ref.row_blocks(cfg, obs.shape[0], _CHUNK):
+        logits, _ = ref.forward(cfg, weights, obs[rows], False)
+        lp = ref.masked_log_softmax(logits, mask[rows])
         p = lp.exp()
         safe = torch.where(p > 0, lp, torch.zeros_like(lp))
         h = -(p * safe).sum(-1)
-        total += float((lp.gather(1, cell[i:i + _CHUNK, None].long())[:, 0] + h).sum())
+        total += float((lp.gather(1, cell[rows, None].long())[:, 0] + h).sum())
         var += float(((p * safe * safe).sum(-1) - h * h).clamp(min=0).sum())
     return abs(total) / math.sqrt(max(var, 1e-30))
 

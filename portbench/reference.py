@@ -10,11 +10,15 @@ holds:
     ``make_weights``), made on the device from the seed in one call;
   * the MNK rules (``line_matrix``, ``wins``) and the self-play transition
     check (``replay_env``);
-  * both networks, ResNet and board transformer, as functions of a dict of
-    tensors in the state-dict naming (``forward``), train mode (BatchNorm
-    over the batch) and eval mode (BatchNorm over the running statistics);
+  * the networks as functions of a dict of tensors in the state-dict
+    naming (``forward``), in train mode (BatchNorm over the batch) and eval
+    mode (BatchNorm over the running statistics): the body of each family
+    in a file of its own (``families/<family>.py``, found by the
+    configuration's ``family``: ResNet, board transformer), over the heads
+    and the layers' helpers here, which every family shares;
   * the masked categorical, GAE, the clipped-surrogate loss and AdamW after
-    a global-norm clip (``ppo_steps``).
+    a global-norm clip (``ppo_steps``), in blocks of as many boards as the
+    body's features fit in ``BLOCK_BYTES`` (``row_blocks``).
 
 Taken from the port's plain versions and the JAX package's semantics:
 ``rl_selfplay_mnk_tpu_torch/env/lines.py`` (the lines), ``env/mnk_env.py``
@@ -38,6 +42,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from . import spec
 
 
 # ---------------------------------------------------------------------------
@@ -143,60 +149,29 @@ def _head_shapes(prefix: str, channels: int, cells: int, planes: int, hidden: in
 
 def param_shapes(cfg: dict) -> Dict[str, tuple]:
     """name -> (shape, init) of every parameter and buffer, in the
-    state-dict naming; init is "kernel" (normal, variance 1 / fan_in),
-    "embed" (normal, std 0.02), "zero", "one" or "buffer_zero" /
-    "buffer_one" (BatchNorm running statistics)."""
+    state-dict naming: the family's body, then the heads. init is "kernel"
+    (normal, variance 1 / fan_in, the fan-in the product of the shape past
+    the first axis), ("kernel", fan_in) (the same with the fan-in stated,
+    for a stacked tensor such as experts' (E, out, in)), "embed" (normal,
+    std 0.02), "zero", "one" or "buffer_zero" / "buffer_one" (BatchNorm
+    running statistics)."""
     m, n, _ = cfg["mnk"]
     cells, actions = m * n, m * n
-    out: Dict[str, tuple] = {}
-    if cfg["family"] == "resnet":
-        c = cfg["channels"]
-
-        def conv_bn(conv, bn, cin):
-            out[f"{conv}.weight"] = ((c, cin, 3, 3), "kernel")
-            out[f"{conv}.bias"] = ((c,), "zero")
-            out[f"{bn}.weight"] = ((c,), "one")
-            out[f"{bn}.bias"] = ((c,), "zero")
-            out[f"{bn}.running_mean"] = ((c,), "buffer_zero")
-            out[f"{bn}.running_var"] = ((c,), "buffer_one")
-
-        conv_bn("conv_in", "bn_in", 2)
-        for i in range(cfg["num_blocks"]):
-            conv_bn(f"blocks.{i}.conv1", f"blocks.{i}.bn1", c)
-            conv_bn(f"blocks.{i}.conv2", f"blocks.{i}.bn2", c)
-        width = c
-    elif cfg["family"] == "transformer":
-        d, f = cfg["embed_dim"], cfg["ffn_dim"]
-        out["embed.pos_embed"] = ((1, cells, d), "embed")
-        out["embed.cell_embed.weight"] = ((d, 2), "embed")
-        out["embed.cell_embed.bias"] = ((d,), "zero")
-        qkv = cfg["num_heads"] * cfg["head_dim"]
-        for i in range(cfg["num_layers"]):
-            p = f"layers.{i}"
-            out[f"{p}.ln1.weight"] = ((d,), "one")
-            out[f"{p}.ln1.bias"] = ((d,), "zero")
-            for name, shape in (("query", (qkv, d)), ("key", (qkv, d)), ("value", (qkv, d)),
-                                ("out", (d, qkv))):
-                out[f"{p}.attn.{name}.weight"] = (shape, "kernel")
-                out[f"{p}.attn.{name}.bias"] = ((shape[0],), "zero")
-            if f:
-                out[f"{p}.ln2.weight"] = ((d,), "one")
-                out[f"{p}.ln2.bias"] = ((d,), "zero")
-                out[f"{p}.dense1.weight"] = ((f, d), "kernel")
-                out[f"{p}.dense1.bias"] = ((f,), "zero")
-                out[f"{p}.dense2.weight"] = ((d, f), "kernel")
-                out[f"{p}.dense2.bias"] = ((d,), "zero")
-        width = d
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
+    body, width = spec.family(cfg).body_shapes(cfg)
+    out: Dict[str, tuple] = dict(body)
     h = cfg["head_hidden"]
     out.update(_head_shapes("heads.policy_head", width, cells, 2, h, actions))
     out.update(_head_shapes("heads.value_head", width, cells, 1, h, 1))
     return out
 
 
-def is_parameter(init: str) -> bool:
-    return not init.startswith("buffer")
+def init_kind(init) -> tuple:
+    """(kind, stated fan-in or None) of an init of ``param_shapes``."""
+    return (init[0], init[1]) if isinstance(init, tuple) else (init, None)
+
+
+def is_parameter(init) -> bool:
+    return not init_kind(init)[0].startswith("buffer")
 
 
 def parameter_count(cfg: dict) -> int:
@@ -208,18 +183,19 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The benchmark's weights, float32 on ``device``: one normal draw from
     a generator on the device seeded with ``seed``, cut into the kernels
     and embeddings and scaled; constants for the rest."""
-    shapes = param_shapes(cfg)
-    drawn = [(k, s, i) for k, (s, i) in shapes.items() if i in ("kernel", "embed")]
+    shapes = {k: (s, *init_kind(i)) for k, (s, i) in param_shapes(cfg).items()}
+    drawn = [s for s, kind, _ in shapes.values() if kind in ("kernel", "embed")]
     gen = torch.Generator(device=device).manual_seed(seed)
-    flat = torch.randn(sum(math.prod(s) for _, s, _ in drawn), generator=gen, device=device)
+    flat = torch.randn(sum(math.prod(s) for s in drawn), generator=gen, device=device)
     out, at = {}, 0
-    for name, (shape, init) in shapes.items():
-        if init in ("kernel", "embed"):
+    for name, (shape, kind, fan_in) in shapes.items():
+        if kind in ("kernel", "embed"):
             size = math.prod(shape)
-            std = 0.02 if init == "embed" else 1.0 / math.sqrt(math.prod(shape[1:]))
+            fan_in = math.prod(shape[1:]) if fan_in is None else fan_in
+            std = 0.02 if kind == "embed" else 1.0 / math.sqrt(fan_in)
             out[name] = (flat[at:at + size] * std).view(shape)
             at += size
-        elif init in ("one", "buffer_one"):
+        elif kind in ("one", "buffer_one"):
             out[name] = torch.ones(shape, device=device)
         else:
             out[name] = torch.zeros(shape, device=device)
@@ -264,20 +240,6 @@ def _head(p, prefix, feats, eps, prec):
     return _linear(x, p[f"{prefix}.dense2.weight"], p[f"{prefix}.dense2.bias"], prec)
 
 
-def _resnet_body(cfg, p, obs, train, prec):
-    eps = cfg["batchnorm_eps"]
-    x = torch.relu(_batch_norm(_conv(obs, p["conv_in.weight"], p["conv_in.bias"], prec), p,
-                               "bn_in", train, eps))
-    for i in range(cfg["num_blocks"]):
-        b = f"blocks.{i}"
-        h = _conv(x, p[f"{b}.conv1.weight"], p[f"{b}.conv1.bias"], prec)
-        h = torch.relu(_batch_norm(h, p, f"{b}.bn1", train, eps))
-        h = _batch_norm(_conv(h, p[f"{b}.conv2.weight"], p[f"{b}.conv2.bias"], prec), p,
-                        f"{b}.bn2", train, eps)
-        x = torch.relu(h + x)
-    return x.permute(0, 2, 3, 1)  # (B, M, N, C): the heads flatten in (m, n, plane) order
-
-
 def _attention(q, k, v, prec):
     """(B, L, H, Dh) -> (B, L, H, Dh): softmax(q k^T / sqrt(Dh)) v per head."""
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
@@ -287,33 +249,10 @@ def _attention(q, k, v, prec):
     return o.transpose(1, 2)
 
 
-def _transformer_body(cfg, p, obs, prec):
-    eps = cfg["layernorm_eps"]
-    b, c, m, n = obs.shape
-    h_, dh = cfg["num_heads"], cfg["head_dim"]
-    tokens = obs.permute(0, 2, 3, 1).reshape(b, m * n, c)
-    x = _linear(tokens, p["embed.cell_embed.weight"], p["embed.cell_embed.bias"], prec)
-    x = x + p["embed.pos_embed"]
-    for i in range(cfg["num_layers"]):
-        pre = f"layers.{i}"
-        y = _layer_norm(x, p[f"{pre}.ln1.weight"], p[f"{pre}.ln1.bias"], eps)
-        q, k, v = (_linear(y, p[f"{pre}.attn.{t}.weight"], p[f"{pre}.attn.{t}.bias"], prec)
-                   .view(b, m * n, h_, dh) for t in ("query", "key", "value"))
-        o = _attention(q, k, v, prec).reshape(b, m * n, h_ * dh)
-        x = x + _linear(o, p[f"{pre}.attn.out.weight"], p[f"{pre}.attn.out.bias"], prec)
-        if cfg["ffn_dim"]:
-            y = _layer_norm(x, p[f"{pre}.ln2.weight"], p[f"{pre}.ln2.bias"], eps)
-            y = torch.relu(_linear(y, p[f"{pre}.dense1.weight"], p[f"{pre}.dense1.bias"], prec))
-            x = x + _linear(y, p[f"{pre}.dense2.weight"], p[f"{pre}.dense2.bias"], prec)
-    return x
-
-
 def forward(cfg: dict, p: dict, obs: torch.Tensor, train: bool, prec: Precision = FP32):
-    """(B, 2, M, N) float32 observation -> (logits (B, A), value (B,))."""
-    if cfg["family"] == "resnet":
-        feats = _resnet_body(cfg, p, obs, train, prec)
-    else:
-        feats = _transformer_body(cfg, p, obs, prec)
+    """(B, 2, M, N) float32 observation -> (logits (B, A), value (B,)): the
+    family's body, then the policy and value heads."""
+    feats = spec.family(cfg).body(cfg, p, obs, train, prec)
     eps = cfg["layernorm_eps"]
     logits = _head(p, "heads.policy_head", feats, eps, prec)
     value = torch.tanh(_head(p, "heads.value_head", feats, eps, prec))[:, 0]
@@ -497,6 +436,50 @@ def ppo_loss(cfg, p, obs, mask, actions, old_logp, adv, returns, ent_coef, prec)
     return total, actor, critic, ent_loss
 
 
+# One float32 activation of the body's width over a block of boards stays
+# under this: a graph that keeps some tens of them fits the card beside what
+# the run has left on it. Today's cells (at most 8192 boards of 81 cells at
+# width 56) fit one block.
+BLOCK_BYTES = 1 << 28
+
+
+def row_blocks(cfg: dict, rows: int, most=None, train: bool = False) -> list:
+    """Consecutive slices over ``rows`` rows, each of at most ``most`` rows
+    and of as many boards as the body's features (cells x width in float32)
+    fit in ``BLOCK_BYTES``. ``train``: the rows are one train-mode batch,
+    which a ``BATCH_COUPLED`` family (BatchNorm over the batch) cannot split,
+    so more than one block is refused for it."""
+    fam = spec.family(cfg)
+    m, n, _ = cfg["mnk"]
+    size = max(1, min(BLOCK_BYTES // (m * n * fam.body_shapes(cfg)[1] * 4), most or rows, rows))
+    if train and size < rows and fam.BATCH_COUPLED:
+        raise ValueError(f"family {cfg['family']!r} mixes boards in train mode (BatchNorm), and "
+                         f"{rows} boards of {cfg.get('name', 'this configuration')} do not fit "
+                         f"one block of the reference ({size} boards)")
+    return [slice(i, i + size) for i in range(0, rows, size)]
+
+
+def _loss_and_grad(cfg, p, leaves, batch, rows, ent_coef, prec):
+    """A minibatch's loss terms and gradient over consecutive blocks of its
+    rows (``row_blocks``): each block's mean terms weighted by its share of
+    the rows, its gradient summed in float32. One block gives the single
+    graph's bits."""
+    terms = grads = None
+    for part in row_blocks(cfg, rows.shape[0], train=True):
+        mb = {k: v[rows[part]] for k, v in batch.items()}
+        share = mb["obs"].shape[0] / rows.shape[0]
+        out = ppo_loss(cfg, p, mb["obs"], mb["mask"], mb["actions"], mb["old_logp"], mb["adv"],
+                       mb["returns"], ent_coef, prec)
+        g = torch.autograd.grad(out[0] * share, leaves)
+        t = [float(x.detach()) * share for x in out]
+        if grads is None:
+            terms, grads = t, list(g)
+        else:
+            terms = [a + b for a, b in zip(terms, t)]
+            grads = [a + b for a, b in zip(grads, g)]
+    return terms, grads
+
+
 def ppo_steps(cfg: dict, traffic: dict, weights: dict, batch: dict, minibatches,
               prec: Precision = FP32) -> dict:
     """The first ``len(minibatches)`` updates from ``weights``: each a loss,
@@ -504,7 +487,8 @@ def ppo_steps(cfg: dict, traffic: dict, weights: dict, batch: dict, minibatches,
     the flat (rows, ...) obs, mask, actions, old_logp, adv, returns;
     ``minibatches`` each update's row ids. Returns each update's loss terms
     and pre-clip global gradient norm, the first update's clipped gradient
-    and the parameters after the last, by name."""
+    and the parameters after the last, by name. Each update's loss and
+    gradient are taken over blocks of its rows (``_loss_and_grad``)."""
     names = [k for k, (_, i) in param_shapes(cfg).items() if is_parameter(i)]
     params = {k: weights[k].detach().clone().requires_grad_(True) for k in names}
     buffers = {k: v for k, v in weights.items() if k not in params}
@@ -514,12 +498,9 @@ def ppo_steps(cfg: dict, traffic: dict, weights: dict, batch: dict, minibatches,
     ent_coef = entropy_coef_at(cfg, traffic, 0)
     losses, first_grad, norms = [], None, []
     for step, rows in enumerate(minibatches, start=1):
-        mb = {k: v[rows] for k, v in batch.items()}
         p = {**params, **buffers}
-        total, actor, critic, ent = ppo_loss(cfg, p, mb["obs"], mb["mask"], mb["actions"],
-                                             mb["old_logp"], mb["adv"], mb["returns"],
-                                             ent_coef, prec)
-        grads = torch.autograd.grad(total, [params[k] for k in names])
+        terms, grads = _loss_and_grad(cfg, p, [params[k] for k in names], batch, rows, ent_coef,
+                                      prec)
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         norms.append(float(norm))
         scale = cfg["max_grad_norm"] / norm if norm >= cfg["max_grad_norm"] else 1.0
@@ -535,6 +516,6 @@ def ppo_steps(cfg: dict, traffic: dict, weights: dict, batch: dict, minibatches,
                 exp_sq[k].mul_(b2).addcmul_(g, g, value=1 - b2)
                 denom = (exp_sq[k] / (1 - b2 ** step)).sqrt() + cfg["adam_eps"]
                 w.addcdiv_(exp_avg[k], denom, value=-lr / (1 - b1 ** step))
-        losses.append([float(x.detach()) for x in (total, actor, critic, ent)])
+        losses.append(terms)
     return {"losses": losses, "first_grad": first_grad, "grad_norms": norms,
             "params": {k: v.detach() for k, v in params.items()}, "ent_coef": ent_coef}

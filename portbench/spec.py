@@ -10,6 +10,8 @@ later change adds one by adding a file (and its line in
   metrics/<name>.py      a reader: ``UNIT``, ``LAYER``, ``SOURCE``,
                          ``MOVES`` and ``read(ctx, yardstick)``
   limits/<cell>.json     the limit of each number that decides ``correct``
+  families/<family>.py   a network family (``family``): its body's
+                         parameters, plain float32 body, FLOPs and kernels
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ def load(kind: str, name: str) -> dict:
 def cell(name: str):
     """(configuration, traffic) of the cell ``name``."""
     c = load("cells", name)
-    return load("configs", c["config"]), load("traffic", c["traffic"])
+    cfg = load("configs", c["config"])
+    family(cfg)
+    return cfg, load("traffic", c["traffic"])
 
 
 def benchmark() -> dict:
@@ -66,4 +70,35 @@ def load_metric(name: str):
     mod_spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
     module = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(module)
+    return module
+
+
+def families() -> list:
+    return sorted(p.stem for p in (ROOT / "families").glob("*.py") if p.stem != "__init__")
+
+
+def family(cfg: dict):
+    """The module ``families/<cfg["family"]>.py``, which defines
+
+      body_shapes(cfg) -> (dict, width)   name -> (shape, init) of the body's
+                                          parameters and buffers, in the
+                                          program's state-dict naming and
+                                          order, and the width the heads read
+      body(cfg, p, obs, train, prec)      the plain float32 body -> features
+      body_flops(cfg) -> float            model FLOPs of one board's body
+      kernel_work(cfg, traffic) -> dict   kernel -> (symbol substring, least
+                                          seconds an iteration)
+      BATCH_COUPLED                       True where a layer mixes boards in
+                                          train mode (BatchNorm)
+
+    A family builds on what every family shares, and may use these names:
+    from ``reference``, the precisions' ``operand`` and ``product`` and the
+    layers ``_linear``, ``_conv``, ``_layer_norm``, ``_attention`` and
+    ``_batch_norm``; from ``yardstick``, the least times ``bound_s``,
+    ``k2_bound_s`` and ``attention_bound_s``. It imports them inside the
+    package (``from .. import reference``), and nothing of the program."""
+    name = cfg["family"]
+    if not (name.isidentifier() and (ROOT / "families" / f"{name}.py").is_file()):
+        raise ValueError(f"unknown family {name!r}; families found: {', '.join(families())}")
+    module = importlib.import_module(f"{__package__}.families.{name}")
     return module

@@ -12,7 +12,8 @@ import pytest
 from portbench import run, spec
 
 PROGRAM = "rl_selfplay_mnk_tpu_torch"
-REFERENCE_FILES = ("reference.py", "check.py", "yardstick.py", "trace.py", "spec.py")
+REFERENCE_FILES = ("reference.py", "check.py", "yardstick.py", "trace.py", "spec.py",
+                   *sorted(f"families/{p.name}" for p in (spec.ROOT / "families").glob("*.py")))
 
 
 def loaded_by(code: str) -> list:
@@ -36,7 +37,8 @@ def test_the_harness_and_the_port_load_no_jax():
 
 def test_the_reference_loads_nothing_of_the_program():
     names = loaded_by("import portbench.reference, portbench.check, portbench.yardstick, "
-                      "portbench.trace, portbench.spec")
+                      "portbench.trace, portbench.spec; "
+                      "[portbench.spec.family({'family': f}) for f in portbench.spec.families()]")
     assert not {n for n in names if n.startswith("rl_selfplay_mnk_tpu")}
     assert not set(names) & set(run.FORBIDDEN)
 

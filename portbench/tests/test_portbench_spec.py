@@ -104,3 +104,78 @@ def test_new_cell_and_metric_need_new_files_only(tmp_path):
     assert "env_mismatch" in limits
     for path, data in before.items():
         assert path.read_bytes() == data, path
+
+
+FAMILY = '''"""A mixture of stacked dense maps over each cell's two planes, averaged."""
+
+import torch
+
+from .. import yardstick
+
+BATCH_COUPLED = False
+
+
+def body_shapes(cfg):
+    e, d = cfg["num_experts"], cfg["embed_dim"]
+    return {"experts.weight": ((e, d, 2), ("kernel", 2)), "experts.bias": ((d,), "zero")}, d
+
+
+def body(cfg, p, obs, train, prec):
+    b, c, m, n = obs.shape
+    tokens = obs.permute(0, 2, 3, 1).reshape(b, m * n, c)
+    y = torch.einsum("blc,edc->bled", prec.operand(tokens), prec.operand(p["experts.weight"]))
+    return prec.product(y).mean(2) + p["experts.bias"]
+
+
+def body_flops(cfg):
+    m, n, _ = cfg["mnk"]
+    return float(2 * m * n * cfg["num_experts"] * cfg["embed_dim"] * 2)
+
+
+def kernel_work(cfg, traffic):
+    return {"KX": ("expert_gemm", traffic["n_steps"] * yardstick.bound_s(1e6, 1e6, "bfloat16"))}
+'''
+
+
+def test_new_family_needs_new_files_only(tmp_path):
+    """In a copy of the benchmark, a family file with a stacked tensor of a
+    stated fan-in and a configuration that names it are found: the weights
+    scale that tensor by its stated fan-in, and the forward, the FLOPs and
+    the kernel work run through it; no file that was there changes."""
+    root = tmp_path / "repo"
+    shutil.copytree(spec.ROOT, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in (root / "portbench").rglob("*") if p.is_file()}
+    (root / "portbench/families/tiny_mix.py").write_text(FAMILY)
+    cfg = json.loads((root / "portbench/configs/transformer_b_s.json").read_text())
+    cfg.update(name="tiny_mix", family="tiny_mix", mnk=[3, 3, 3], num_experts=4, embed_dim=6,
+               head_hidden=4)
+    (root / "portbench/configs/tiny_mix.json").write_text(json.dumps(cfg))
+    code = (
+        "import json, math, sys; sys.path.insert(0, sys.argv[1]); import torch\n"
+        "from portbench import reference, spec, yardstick\n"
+        "cfg = spec.load('configs', 'tiny_mix')\n"
+        "fam = spec.family(cfg)\n"
+        "w = reference.make_weights(cfg, 11, 'cpu')\n"
+        "drawn = sum(math.prod(s) for s, i in reference.param_shapes(cfg).values()\n"
+        "            if reference.init_kind(i)[0] in ('kernel', 'embed'))\n"
+        "flat = torch.randn(drawn, generator=torch.Generator().manual_seed(11))\n"
+        "want = flat[:48].view(4, 6, 2) * (1.0 / math.sqrt(2))\n"
+        "logits, value = reference.forward(cfg, w, torch.zeros((5, 2, 3, 3)), True)\n"
+        "work = yardstick.kernel_work(cfg, spec.load('traffic', 'fused384'))\n"
+        "print(json.dumps([spec.families(), fam.__name__, torch.equal(w['experts.weight'], want),\n"
+        "                  list(logits.shape), list(value.shape),\n"
+        "                  yardstick.forward_flops(cfg) - fam.body_flops(cfg), sorted(work)]))\n")
+    out = subprocess.run([sys.executable, "-c", code, str(root)], capture_output=True, text=True,
+                         check=True).stdout
+    found, module, scaled, logits, value, head_flops, kernels = json.loads(
+        out.strip().splitlines()[-1])
+    assert "tiny_mix" in found and module == "portbench.families.tiny_mix"
+    assert scaled  # 1 / sqrt(2), the stated fan-in, not 1 / sqrt(6 * 2)
+    assert (logits, value) == ([5, 9], [5])
+    cells, c, h = 9, 6, 4
+    assert head_flops == 2 * cells * c * 3 + 2 * (2 * cells) * h + 2 * cells * h + 2 * h * cells \
+        + 2 * h
+    assert kernels == ["K1", "KX"]
+    for path, data in before.items():
+        assert path.read_bytes() == data, path

@@ -6,10 +6,14 @@ The peaks and the byte and operation counts are copied from
 attention counts of ``time_resblock`` and ``time_attention``) and
 ``rl_selfplay_mnk_tpu_torch/utils/env_step_study.py`` (``k1_bytes``): each
 input byte read once and each output byte written once, at the shapes the
-cell's inputs give, whatever implements the kernel.
+cell's inputs give, whatever implements the kernel. A network family's body
+FLOPs and kernels are counted in its own file (``families/<family>.py``);
+the heads' FLOPs and K1's work, which every family shares, here.
 """
 
 from __future__ import annotations
+
+from . import spec
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 outside
@@ -63,26 +67,17 @@ def attention_bound_s(boards: int, length: int, heads: int, head_dim: int,
 
 def forward_flops(cfg: dict) -> float:
     """Model FLOPs of one board's forward (2 a multiply-add): every conv,
-    linear and attention product; norms and activations not counted."""
+    linear and attention product; norms and activations not counted. The
+    body's are the family's (``body_flops``), the heads' are counted here."""
     m, n, _ = cfg["mnk"]
     cells = m * n
     h = cfg["head_hidden"]
-    if cfg["family"] == "resnet":
-        c = cfg["channels"]
-        body = 2 * cells * 9 * 2 * c + cfg["num_blocks"] * 2 * (2 * cells * 9 * c * c)
-    elif cfg["family"] == "transformer":
-        c = d = cfg["embed_dim"]
-        qkv = cfg["num_heads"] * cfg["head_dim"]
-        layer = 2 * cells * d * qkv * 3 + 2 * cells * qkv * d  # projections
-        layer += 2 * (2 * cells * cells * qkv)  # q k^T and p v
-        layer += 2 * (2 * cells * d * cfg["ffn_dim"])
-        body = 2 * cells * 2 * d + cfg["num_layers"] * layer
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
+    family = spec.family(cfg)
+    c = family.body_shapes(cfg)[1]
     heads = 2 * cells * c * 3  # the two plane projections (2 planes and 1)
     heads += 2 * (2 * cells) * h + 2 * cells * h  # first dense layers
     heads += 2 * h * cells + 2 * h  # last dense layers
-    return float(body + heads)
+    return float(family.body_flops(cfg) + heads)
 
 
 def iteration_flops(cfg: dict, traffic: dict) -> float:
@@ -99,25 +94,10 @@ def iteration_flops(cfg: dict, traffic: dict) -> float:
 
 def kernel_work(cfg: dict, traffic: dict) -> dict:
     """kernel -> (substring of its symbol, least seconds of the calls one
-    iteration needs). K1: two env steps a rollout step; K2: the opponent's
-    residual blocks a step; K5: the learner's, the opponent's and the
-    bootstrap's attention without a gradient; K3/K4: the update's attention
-    forward and backward a minibatch."""
-    mnk = cfg["mnk"]
-    envs, steps = traffic["num_envs"], traffic["n_steps"]
-    updates = traffic["ppo_epochs"] * envs * steps // traffic["batch_size"]
-    out = {"K1": ("env_step", 2 * steps * k1_bound_s(mnk, envs))}
-    if cfg["family"] == "resnet":
-        out["K2"] = ("resblock", steps * cfg["num_blocks"]
-                     * k2_bound_s(mnk, envs, cfg["channels"]))
-    else:
-        length = mnk[0] * mnk[1]
-        shape = (length, cfg["num_heads"], cfg["head_dim"])
-        layers = cfg["num_layers"]
-        out["K5"] = ("attn_lane_slice_fwd", (2 * steps + 1) * layers
-                     * attention_bound_s(envs, *shape, backward=False))
-        out["K3"] = ("attn_folded_fwd", updates * layers
-                     * attention_bound_s(traffic["batch_size"], *shape, backward=False))
-        out["K4"] = ("attn_folded_bwd", updates * layers
-                     * attention_bound_s(traffic["batch_size"], *shape, backward=True))
+    iteration needs). K1: two env steps a rollout step; the family's own
+    kernels (``families/<family>.py``: K2 for the ResNet's residual blocks;
+    K5, K3, K4 for the transformer's attention)."""
+    steps = traffic["n_steps"]
+    out = {"K1": ("env_step", 2 * steps * k1_bound_s(cfg["mnk"], traffic["num_envs"]))}
+    out.update(spec.family(cfg).kernel_work(cfg, traffic))
     return out
