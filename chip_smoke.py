@@ -58,6 +58,10 @@ Phases, in order; any failure exits non-zero:
    with its ``attention_fn`` forced to the with-gradient route that the
    default does not take, so the folded pair and the in-kernel-fold pair are
    each launched on a train path;
+8b. LFM2 (``lfm2_8b_a1b_l6_e8``, published widths) through ``train_mnk``: 2
+   iterations at 32 envs x 8 steps, batch 128, one validation with its
+   export; the RMS mode, the short convolution, the expert layer's kernels,
+   LayerNorm (the heads), K1 and K8/K9 launched, no other attention kernel;
 9. resume: the default config cut after 2 iterations (a checkpoint at
    iteration 1) and resumed for a third: it starts at iteration 2, with the
    opponent sources of path 5's uninterrupted run, each iteration logged
@@ -107,7 +111,13 @@ Phases, in order; any failure exits non-zero:
    the update minibatch's and the rollout's rows: the forward with and
    without the statistics, the backward, the plain version, ``F.layer_norm``
    on bf16 and its autograd backward as the library yardstick, the bound by
-   bytes, and each instantiation's registers, spill bytes and blocks an SM).
+   bytes, and each instantiation's registers, spill bytes and blocks an SM),
+   and LFM2's kernels at its benchmark cell's shapes
+   (``utils/lfm2_study.py``: RMSNorm at 2048 and 64, the short convolution
+   pair, the expert layer's dispatch and combine and its grouped products,
+   K8/K9 at (512, 81, 32, 64)), each first held to its plain version on
+   the timed inputs (forward and backward, the bf16 limit; the script fails
+   past it).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1782,6 +1792,35 @@ def phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors, ln_err
     return kernels
 
 
+def lfm2_kernel_records(launches) -> list:
+    """LFM2's kernels at the benchmark cell's shapes (``utils/lfm2_study.py``):
+    RMSNorm at 2048 and 64, the short convolution pair, the expert layer's
+    dispatch and combine and its grouped products, K8/K9 at (512, 81, 32,
+    64); each with its launches on the LFM2 train path. ``lfm2_study.rows``
+    holds each kernel's outputs to its plain version's first and raises
+    past the bf16 limit (``error``: the worst share of it)."""
+    import torch
+
+    from rl_selfplay_mnk_tpu_torch.utils import lfm2_study
+
+    wrapper = {"rms_norm_2048": "rms_norm", "rms_norm_64": "rms_norm",
+               "short_conv": "short_conv", "moe_dispatch": "moe", "expert_gemm": "moe",
+               "K8": "attn_packed_fwd", "K9": "attn_packed_bwd"}
+    records = []
+    for row in lfm2_study.rows(torch.device("cuda:0")):
+        name = wrapper[row["name"]]
+        row.update(launches=launches[name][0], launches_on=launches[name][1])
+        records.append(row)
+        back = row.get("backward")
+        extra = (f"; backward {back['ms']:.5f} ms (plain {back['plain_ms']}, library "
+                 f"{back['library_ms']}, bound {back['bound_ms']:.5f})" if back else "")
+        print(f"timing {row['name']} at {tuple(row['shape'])}: device {row['ms']:.5f} ms, per call "
+              f"{row['call_ms']:.5f} ms; plain {row['plain_ms']} ms; library {row['library_ms']} "
+              f"ms; bound {row['bound_ms']:.5f} ms by {row['bound_by']}{extra}; "
+              f"{row['error']:.3f} of the bf16 limit")
+    return records
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1874,6 +1913,17 @@ def main() -> int:
         finally:
             registry.ARCHITECTURE_REGISTRY["transformer_c_s"] = factory
 
+        # LFM2 at its published widths through train_mnk's own loop: the RMS
+        # mode, the short convolution, the expert layer's kernels and K8/K9.
+        config = build_config("lfm2_8b_a1b_l6_e8")
+        config.update(num_envs=32, n_steps=8, batch_size=128, validation_interval=1,
+                      validation_episodes=16, export_dir=f"{tmp}/models")
+        label_lfm2 = "lfm2_8b_a1b_l6_e8 9x9x5"
+        paths[label_lfm2], _ = phase_train(
+            torch, dev, label_lfm2, config, 2,
+            ("env_step", "layer_norm", "rms_norm", "short_conv", "moe") + packed,
+            folded + infold + ("resblock", "attn_lane_slice_fwd"))
+
         phase_resume(torch, dev, sources, tmp)
         label_bench = "bench 9x9x5 8192 envs"
         paths[label_bench] = phase_bench(torch, label_bench)
@@ -1898,7 +1948,7 @@ def main() -> int:
     # Each kernel's launches: the count of the first of these paths that ran it.
     launches = {}
     for name in paths[label]:
-        for path in (label_9, label_13, label_a, label_b, label_c, label, label_bench):
+        for path in (label_9, label_13, label_a, label_b, label_c, label, label_bench, label_lfm2):
             if paths[path][name] > 0:
                 launches[name] = (paths[path][name], path)
                 break
@@ -1906,6 +1956,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was launched on none of the paths")
     threshold = phase_threshold(torch, dev)
     kernels = phase_timings(torch, dev, launches, k1_error, k2_errors, attn_errors, ln_errors)
+    kernels += lfm2_kernel_records(launches)
 
     print(json.dumps({"threshold": threshold}))
     print(json.dumps({"kernels": kernels}))

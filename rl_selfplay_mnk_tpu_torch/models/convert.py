@@ -18,6 +18,11 @@ positional embedding is a bare parameter, and a transformer's
 marks a transformer (``SGRBlock_*`` scopes the SGR one), ``ResidualBlock_*``
 a ResNet, a top-level ``Dense_0`` the MLP, and ``Conv_*`` alone the CNN. The
 MLP flattens the observation as (plane, m, n) on both sides.
+
+LFM2 (``models/lfm2.py``), which the JAX package has not, keeps its
+state_dict as it is: each name split at its dots into nested scopes under
+``params`` (a top-level ``final_norm`` marks it), every tensor in its own
+layout and dtype.
 """
 
 from __future__ import annotations
@@ -146,9 +151,24 @@ def _count(keys, prefix: str) -> int:
     return sum(1 for k in keys if k.startswith(prefix))
 
 
+_NESTED_MARK = "final_norm"  # the top-level scope that only LFM2's tree has
+
+
+def _flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = torch.from_numpy(np.array(value))
+    return out
+
+
 def flax_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX variables (any registry tree) -> the port's state_dict."""
     params = variables["params"]
+    if _NESTED_MARK in params:
+        return _flatten(params)
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
     if "cell_embed" in params:
@@ -200,6 +220,8 @@ def flax_param_paths(names) -> Dict[str, str]:
     the parameter names of any registry model. Each leaf holds the same
     numbers on both sides, laid out differently."""
     names = list(names)
+    if any(n.startswith(_NESTED_MARK + ".") for n in names):
+        return {n: n.replace(".", "/") for n in names}
     paths = {"embed.pos_embed": "pos_embed"} if "embed.pos_embed" in names else {}
     for path, module_path, kind in _port_layers(names):
         for flax_leaf, torch_leaf in _LEAVES[kind]:
@@ -213,6 +235,10 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[
     projection weights do not tell how many heads they hold."""
     params: dict = {}
     stats: dict = {}
+    if f"{_NESTED_MARK}.weight" in state_dict:
+        for name, value in state_dict.items():
+            _set(params, tuple(name.split(".")), value.detach().cpu().numpy())
+        return {"params": params, "batch_stats": stats}
     layers = _port_layers(state_dict)
     if "embed.cell_embed.weight" in state_dict:
         if num_heads is None:

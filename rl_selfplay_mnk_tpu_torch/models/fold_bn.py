@@ -16,7 +16,9 @@ as it is.
 
 ``snapshot`` is what the trainer takes of the learner for an opponent, a
 pool entry or the benchmark: the folded copy for a model with BatchNorm, a
-frozen deep copy for one without (the transformer families, ``mlp_tiny``).
+frozen deep copy for one without (the transformer families, ``mlp_tiny``),
+with its matrices in the compute dtype where the model can hold them so
+(``compact``: LFM2).
 ``snapshot_from_state_dict`` rebuilds one from its ``state_dict()``, as a
 checkpoint keeps it.
 
@@ -99,7 +101,12 @@ def snapshot(model):
     """A frozen copy of ``model`` for eval-mode forwards."""
     if hasattr(model, "conv_bn_pairs"):
         return fold_batchnorm(model)
-    return copy.deepcopy(model).requires_grad_(False)
+    return _compact(copy.deepcopy(model).requires_grad_(False))
+
+
+def _compact(model):
+    compact = getattr(model, "compact", None)
+    return model if compact is None else compact()
 
 
 @torch.no_grad()
@@ -110,4 +117,4 @@ def snapshot_from_state_dict(model, state_dict):
     model.load_state_dict(state_dict)
     if hasattr(model, "conv_bn_pairs"):
         return _mark_folded(model)
-    return model.requires_grad_(False)
+    return _compact(model.requires_grad_(False))

@@ -1,8 +1,12 @@
 """Architecture registry (counterpart of the JAX package's ``models/registry.py``).
 
-All 19 names of the JAX package: the CNN, ResNet and transformer families
-(plain and SGR), their speed tiers and ``mlp_tiny``. A factory passes extra
-keyword arguments on to its module (a transformer's ``attention_fn``).
+``ARCHITECTURE_REGISTRY``: all 19 names of the JAX package, the CNN, ResNet
+and transformer families (plain and SGR), their speed tiers and
+``mlp_tiny``. ``PORT_REGISTRY``: the port's own architectures, which the JAX
+package has not (``lfm2_8b_a1b_l6_e8``, ``models/lfm2.py``).
+``create_model_from_architecture`` takes a name of either. A factory
+passes extra keyword arguments on to its module (a transformer's
+``attention_fn``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch.nn as nn
 
 from .cnn import CnnActorCritic
 from .common import RELU_GAIN, HeadMLP
+from .lfm2 import Lfm2ActorCritic
 from .mlp import MlpActorCritic
 from .resnet import ResNetActorCritic
 from .sgr_transformer import SGRTransformerActorCritic
@@ -48,6 +53,24 @@ def _sgr(d, layers, heads, hidden):
     )
 
 
+# LFM2-8B-A1B (https://huggingface.co/LiquidAI/LFM2-8B-A1B config.json) at its
+# published widths: layers 0-5 (the two dense layers and one period of the
+# expert layers), and experts 0-7 of each expert layer's 32, one chip's share
+# where four chips share each expert layer.
+LFM2_8B_A1B_L6_E8 = dict(
+    hidden_size=2048, layer_types=("conv", "conv", "full_attention", "conv", "conv", "conv"),
+    num_dense_layers=2, intermediate_size=7168, moe_intermediate_size=1792, num_experts=32,
+    experts_held=(0, 8), num_experts_per_tok=4, num_heads=32, num_kv_heads=8, head_dim=64,
+    conv_L_cache=3, rope_theta=1e6, norm_eps=1e-5, routed_scaling_factor=1.0, head_hidden=128,
+)
+
+
+def _lfm2(**sizes):
+    return lambda action_dim, obs_shape, dtype, **kwargs: Lfm2ActorCritic(
+        action_dim, obs_shape, dtype=dtype, **sizes, **kwargs
+    )
+
+
 # name -> factory(action_dim, obs_shape, dtype, **module_kwargs) -> nn.Module
 ARCHITECTURE_REGISTRY: Dict[str, Callable] = {
     "cnn_s": _cnn([64] * 4, 256),
@@ -72,6 +95,9 @@ ARCHITECTURE_REGISTRY: Dict[str, Callable] = {
         action_dim, obs_shape, dtype=dtype, **kwargs
     ),
 }
+PORT_REGISTRY: Dict[str, Callable] = {
+    "lfm2_8b_a1b_l6_e8": _lfm2(**LFM2_8B_A1B_L6_E8),
+}
 
 
 def create_model_from_architecture(
@@ -86,12 +112,13 @@ def create_model_from_architecture(
     Returns ``(module, architecture_params)``; the module's parameters are
     not initialised yet (``init_network``).
     """
-    if architecture_name not in ARCHITECTURE_REGISTRY:
+    factory = ARCHITECTURE_REGISTRY.get(architecture_name, PORT_REGISTRY.get(architecture_name))
+    if factory is None:
         raise ValueError(
             f"Unknown architecture: {architecture_name}. Known architectures: "
-            + ", ".join(sorted(ARCHITECTURE_REGISTRY))
+            + ", ".join(sorted({**ARCHITECTURE_REGISTRY, **PORT_REGISTRY}))
         )
-    module = ARCHITECTURE_REGISTRY[architecture_name](
+    module = factory(
         action_dim, tuple(obs_shape), dtype, **module_kwargs
     )
     arch_params = {
@@ -114,12 +141,21 @@ def _init_lecun_normal(layer, generator):
     1 / fan_in; zero bias."""
     std = math.sqrt(1.0 / layer.weight.shape[1]) / _TRUNCATED_STD
     nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
-    nn.init.zeros_(layer.bias)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
 
 
 def _init_normal_002(layer, generator):
     nn.init.normal_(layer.weight, std=0.02, generator=generator)
     nn.init.zeros_(layer.bias)
+
+
+def _init_embedding(layer, generator):
+    """An embedding's rows: weight and bias normal(0.02), so that no cell
+    embeds to the zero vector (LFM2's RMSNorm would then differentiate at
+    0, through 1 / sqrt(eps))."""
+    nn.init.normal_(layer.weight, std=0.02, generator=generator)
+    nn.init.normal_(layer.bias, std=0.02, generator=generator)
 
 
 def _init_gate(layer, generator):
@@ -132,6 +168,7 @@ _INIT_SCHEMES = {
     "orthogonal": _init_orthogonal,
     "lecun_normal": _init_lecun_normal,
     "normal_0.02": _init_normal_002,
+    "embedding": _init_embedding,
     "gate": _init_gate,
 }
 
@@ -143,10 +180,13 @@ def init_network(module: nn.Module, generator: Optional[torch.Generator] = None)
     A conv or linear layer is initialised by its ``init_scheme`` attribute:
     ``orthogonal`` (gain sqrt 2, zero bias) where it has none, which covers
     the ResNet body and every head; in a transformer body ``lecun_normal``
-    (flax's default), ``normal_0.02`` for the cell embedding and ``gate``
+    (flax's default), ``normal_0.02`` for the cell embedding (``embedding``,
+    its bias too, in LFM2) and ``gate``
     (weight 0, bias 2.0) for the SGR gates. A ``pos_embed`` parameter is
     normal(0.02), norms are ones/zeros, and the heads' last linear layer is
-    orthogonal at gain 0.01 (policy) or 1.0 (value).
+    orthogonal at gain 0.01 (policy) or 1.0 (value). A module with
+    ``init_weights`` initialises its own bare parameters with it (LFM2's
+    stacked experts and convolution taps).
 
     torch's generator gives other numbers than JAX's from the same seed: the
     two packages agree in distribution (and exactly in the constants), not
@@ -158,6 +198,9 @@ def init_network(module: nn.Module, generator: Optional[torch.Generator] = None)
         elif isinstance(layer, nn.LayerNorm):
             nn.init.ones_(layer.weight)
             nn.init.zeros_(layer.bias)
+        init_weights = getattr(layer, "init_weights", None)
+        if init_weights is not None:
+            init_weights(generator)
         pos_embed = getattr(layer, "pos_embed", None)
         if isinstance(pos_embed, nn.Parameter):
             nn.init.normal_(pos_embed, std=0.02, generator=generator)

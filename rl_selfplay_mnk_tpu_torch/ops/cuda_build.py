@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = ("env_step", "resblock", "attention", "attention_bwd", "attention_folded_bwd",
-           "attention_board", "layer_norm")
+           "attention_board", "layer_norm", "short_conv", "moe")
 
 _lock = threading.Lock()
 _libs: dict = {}

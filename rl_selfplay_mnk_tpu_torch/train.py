@@ -142,8 +142,13 @@ def get_default_config() -> Dict[str, Any]:
 
 def apply_family_hparams(config: Dict[str, Any], arch: str) -> Dict[str, Any]:
     """Per-family learning rate and entropy settings, as the JAX package's
-    ``train_all.apply_family_hparams``."""
-    if "transformer" in arch:
+    ``train_all.apply_family_hparams``; LFM2, which the JAX package has
+    not, takes the transformers' entropy schedule at lr 1e-4."""
+    if arch.startswith("lfm2"):
+        config["entropy_coef_schedule"]["params"]["final_coef"] = 0.01
+        config["entropy_coef"] = 0.10
+        config["learning_rate"] = 1e-4
+    elif "transformer" in arch:
         config["entropy_coef_schedule"]["params"]["final_coef"] = 0.01
         config["entropy_coef"] = 0.10
         config["learning_rate"] = 12e-4

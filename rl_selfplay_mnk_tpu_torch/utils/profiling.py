@@ -70,8 +70,10 @@ from ..ops.attention import (
     tiny_head_attention,
 )
 from ..ops.env_step import fused_step
-from ..ops.layer_norm import layer_norm
+from ..ops.layer_norm import layer_norm, rms_norm
+from ..ops.moe import held_experts
 from ..ops.resblock import fused_residual_block
+from ..ops.short_conv import short_conv
 from ..selfplay.policies import NNPolicy
 from ..train import build_config, create_learner
 from ..train_fused import create_fused_trainer, run_block
@@ -91,10 +93,15 @@ PORT_KERNELS = {
     "attn_packed_fwd": attention_packed_fwd,
     "attn_packed_bwd": attention_packed_bwd,
     "layer_norm": layer_norm,
+    "rms_norm": rms_norm,
+    "short_conv": short_conv,
+    "moe": held_experts,
 }
 # The kernel symbols of a wrapper whose symbols do not begin with its name
-# (ATen's own LayerNorm kernels hold "layer_norm").
-KERNEL_SYMBOLS = {"layer_norm": ("ln_rows_", "ln_cols_")}
+# (ATen's own LayerNorm kernels hold "layer_norm"; the RMS mode's are
+# LayerNorm's family, "ln_rows_rms_"; LFM2's expert layer's begin "moe_").
+KERNEL_SYMBOLS = {"layer_norm": ("ln_rows_fwd", "ln_rows_bwd", "ln_cols_"),
+                  "rms_norm": ("ln_rows_rms_",), "moe": ("moe_",)}
 
 
 def trace_launches(times) -> dict:

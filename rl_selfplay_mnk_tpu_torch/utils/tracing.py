@@ -28,8 +28,16 @@ off: that is how the metrics line gets its rollout and update seconds
 The spans (PERF.md, "Spans and counters"): ``capture`` (``capture.warmup``,
 ``capture.graphs``), ``block``, ``iteration``, ``opponent``, ``rollout``,
 ``update`` (``update.prepare``, ``update.epochs``), ``finish``, ``read``,
-``validation``. Whoever reads ``records()`` writes them out; this module
-has no exporter.
+``validation``; inside LFM2's forward ``short_conv`` and ``moe``.
+Whoever reads ``records()`` writes them out; this module has no exporter.
+
+Counters: while tracing is on, ``count(name, value)`` keeps a 0-d device
+tensor under ``name`` (no read on the host); ``counters()`` reads them all
+at once, each name's values in order. The code that counts checks
+``counting()`` first, so with tracing off it computes nothing. LFM2's
+expert layer counts ``moe.expert_load_max_over_mean`` (the most pairs a held
+expert takes over the mean of the held experts') and ``moe.not_held_share``
+(the share of the picks routed to experts held elsewhere), once a forward.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ _enabled = False
 _records: list = []
 _stack: list = []  # the open spans, innermost last
 _anchor = (0, 0)  # (perf_counter_ns, time_ns) at enable()
+_counts: dict = {}  # name -> [0-d tensors]
 
 
 def _mark(event) -> bool:
@@ -151,6 +160,30 @@ def span(name: str, interval: Optional[Interval] = None):
     return Span(name, interval)
 
 
+def counting() -> bool:
+    """True while tracing is on: ``count`` keeps what it is given."""
+    return _enabled
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep the 0-d tensor ``value`` under ``name`` while tracing is on."""
+    if _enabled:
+        _counts.setdefault(name, []).append(value.detach())
+
+
+def counters() -> dict:
+    """name -> the counted values as floats, in order (one read of all)."""
+    names = list(_counts)
+    if not names:
+        return {}
+    flat = torch.stack([v.to(torch.float32).cpu() for n in names for v in _counts[n]]).tolist()
+    out, at = {}, 0
+    for n in names:
+        out[n] = flat[at:at + len(_counts[n])]
+        at += len(_counts[n])
+    return out
+
+
 def enable() -> None:
     """Record spans from now on (the anchor of the profiler's clock is
     taken here)."""
@@ -165,8 +198,10 @@ def disable() -> None:
 
 
 def clear() -> None:
-    """Forget the recorded spans (the open ones stay open, unrecorded)."""
+    """Forget the recorded spans (the open ones stay open, unrecorded) and
+    the counts."""
     del _records[:]
+    _counts.clear()
 
 
 def records() -> list:

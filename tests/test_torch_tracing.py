@@ -256,3 +256,4 @@ def test_the_span_report_covers_a_cells_window_on_the_cpu(cell, capsys):
     assert "coverage" not in off and off["env_steps_per_s"] > 0 and off["setup_s"] > 0
     assert 0.9 < on["coverage"] <= 1.0
     assert on["validation_ms"] > 0 and on["capture_s"] is None  # no capture on the CPU
+    assert on["layers_device_s"] == {"short_conv": 0.0, "moe": 0.0} and on["counters"] == {}

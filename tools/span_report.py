@@ -15,6 +15,11 @@ line: ``env_steps_per_s`` and ``setup_s`` as the benchmark reads them; with
   * ``validation_ms``: the mean ``validation`` span of the window;
   * ``capture_s``, ``capture.warmup_s``, ``capture.graphs_s``: the
     ``capture`` span and its two children (fused cells);
+  * ``layers_device_s``: the device seconds of the window's ``short_conv``
+    and ``moe`` spans (LFM2's forwards; 0 for the other families), and
+    ``counters``: each of ``utils.tracing``'s counters over the window and
+    after (its count, mean and largest value: LFM2's
+    ``moe.expert_load_max_over_mean`` and ``moe.not_held_share``);
   * ``card``: one more iteration after the window, traced for the card alone
     (as ``run.py``'s ``device_idle_share`` is): its wall, busy and idle
     seconds, and ``utils.profiling.layer_report`` of it: the launches, idle
@@ -130,6 +135,12 @@ def main(argv=None, device: str = "cuda", traffic_overrides=None) -> int:
         for name in ("capture", "capture.warmup", "capture.graphs"):
             found = [r["end_ns"] - r["start_ns"] for r in records if r["name"] == name]
             out[f"{name}_s"] = found[0] / 1e9 if found else None
+        out["layers_device_s"] = {
+            name: sum(r["device_s"] or 0.0 for r in records
+                      if r["name"] == name and lo <= r["start_ns"] < hi)
+            for name in ("short_conv", "moe")}
+        out["counters"] = {name: {"count": len(v), "mean": sum(v) / len(v), "max": max(v)}
+                           for name, v in tracing.counters().items() if v}
         if device == "cuda":
             learner = getattr(session, "trainer", None) or session.learner
             out["card"] = card_iteration(session, learner.config.updates_per_iteration)
